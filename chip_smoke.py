@@ -7,27 +7,33 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
-2. build    -- both kernels compiled from ``src/repro_torch/csrc`` with nvcc
-               for sm_90a, with the ptxas report;
+2. build    -- the four kernels compiled from ``src/repro_torch/csrc`` with
+               nvcc for sm_90a, all at once, with the ptxas report;
 3. check    -- each kernel against its plain PyTorch version at the
-               reference tests' shapes and the serving shapes, fp32 and
-               bf16, with kernel / plain / bound / library times;
+               reference tests' shapes and the serving and training
+               shapes, fp32 and bf16, with kernel / plain / bound /
+               library times; the flash-attention backward against
+               autograd through the plain forward;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
 5. parity   -- reduced gemma-2b, fp32 weights, the card against the CPU;
 6. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
                served under the runtime, with every kernel launch counted;
-7. kernels  -- one line with each kernel's numbers.
+7. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
+               tokens, AdamW, per-layer remat) through ``train/loop.py``
+               under the runtime, with every kernel launch counted;
+8. kernels  -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
 Times are CUDA-event times over many queued launches (median), each
 behind a device-side sleep so that no host delay falls inside a timed
-pair, with the L2 cache flushed before each launch, since the serving path
-finds weights and cache cold.  Needs one CUDA card and nvcc; it stops at once without them.
+pair, with the L2 cache flushed before each launch, since the serving and
+training paths find weights, cache and activations cold.  Needs one CUDA card and nvcc; it stops at once without them.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -36,6 +42,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the training phase holds ~40 GB of state beside multi-GB transients
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -44,24 +52,43 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (H100_HBM_HOST, ManualSource,  # noqa: E402
                               RuntimeConfig, UnimemRuntime)
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.tiered_matmul import tiered_matmul_plain  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
+                               init_opt_state)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.train.loop import TrainConfig, train  # noqa: E402
+from repro_torch.train.step import (build_grads_step,  # noqa: E402
+                                    build_train_step)
 
 MB = 1024 ** 2
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BW = 3.35e12
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
+# The backward in fp32: dk and dv sum over G*S stacked rows (16,384 at the
+# training shape) in another order than the plain version.  There the
+# plain version itself lies up to ~6e-5 from a float64 reference on an H100
+# (the kernel_vs_f64 / plain_vs_f64 fields of that check row), so the
+# reference's 2e-5 would measure the plain version's rounding.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PARITY_TOL = 1e-4
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
     "tiered_matmul": ("src/repro_torch/csrc/tiered_matmul.cu",
                       "src/repro/kernels/tiered_matmul.py:50"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:85"),
+    # the TPU kernel has no backward: JAX differentiates its twin
+    # (models/attention.py:43) by autodiff
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:28"),
 }
+TRAIN_SHAPE = (2, 1, 8, 2048, 2048, 256)       # B, K, G, S, T, D
 
 
 def emit(obj) -> None:
@@ -135,11 +162,11 @@ def phase_build() -> None:
               ptxas=reports))
 
 
-def _compare(out, plain, dtype):
+def _compare(out, plain, dtype, tol=TOL):
     """Max abs error, and the reference tests' allclose (rtol = atol)."""
     a, b = out.float(), plain.float()
     return ((a - b).abs().max().item() if a.numel() else 0.0,
-            torch.allclose(a, b, rtol=TOL[dtype], atol=TOL[dtype]))
+            torch.allclose(a, b, rtol=tol[dtype], atol=tol[dtype]))
 
 
 def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen):
@@ -192,6 +219,95 @@ def _matmul_case(timer, dtype, M, K, N, gen, name=None):
         library_ms=timer(lambda: torch.matmul(x, w)))
 
 
+def _visible_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs the mask lets through: the work this input
+    needs, not the padded maximum."""
+    if not causal:
+        return S * T
+    return sum(min(s + 1, T) for s in range(S))
+
+
+def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen):
+    """Forward kernel against the plain forward (output and log-sum-exp);
+    backward kernel against autograd through the plain forward.  Timed at
+    the training shape only."""
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(dtype)
+    q, k, v = mk(B, K, G, S, D), mk(B, K, T, D), mk(B, K, T, D)
+    dout = mk(B, K, G, S, D)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain, plain_lse = fa.flash_attention_plain(*leaves, causal)
+    grads = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    want = torch.autograd.grad(plain, leaves, dout)
+    torch.cuda.synchronize()
+    err, ok = _compare(out, plain.detach(), dtype)
+    lse_err, lse_ok = _compare(lse, plain_lse.detach(), torch.float32)
+    g_err = [_compare(g, w, dtype, BWD_TOL) for g, w in zip(grads, want)]
+    shape = dict(B=B, K=K, G=G, S=S, T=T, D=D, causal=causal)
+    fwd = dict(phase="check", kernel="flash_attention", dtype=str(dtype)[6:],
+               shape=shape, max_abs_err=err, lse_max_abs_err=lse_err,
+               tol=TOL[dtype], ok=ok and lse_ok)
+    bwd = dict(phase="check", kernel="flash_attention_bwd",
+               dtype=str(dtype)[6:], shape=shape,
+               max_abs_err=max(e for e, _ in g_err),
+               dq_dk_dv_max_abs_err=[e for e, _ in g_err],
+               tol=BWD_TOL[dtype], ok=all(o for _, o in g_err))
+    del leaves, plain, plain_lse, want
+    if (B, K, G, S, T, D) == TRAIN_SHAPE:
+        size = q.element_size()
+        pairs = B * K * G * _visible_pairs(S, T, causal)
+        io = (2 * q.numel() + 2 * k.numel()) * size + lse.numel() * 4
+        flops = 4.0 * D * pairs
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(io, flops, dtype)
+        # backward: reads q, k, v, out, dout, lse; writes dq, dk, dv
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+            (3 * q.numel() + 4 * k.numel()) * size + lse.numel() * 4,
+            2.5 * flops, dtype)
+        fwd["ms"] = timer(lambda: fa.flash_attention_fwd(q, k, v, causal), 20)
+        fwd["plain_ms"] = timer(
+            lambda: fa.flash_attention_plain(q, k, v, causal), 10)
+        bwd["ms"] = timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal), 20)
+        bwd["plain_ms"] = timer(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, dout, lse, causal), 10)
+        # yardstick only: SDPA over the G heads with K/V repeated per head
+        q4 = q.view(B, K * G, S, D).detach().requires_grad_()
+        k4, v4 = (t.repeat_interleave(G, dim=1).requires_grad_()
+                  for t in (k, v))
+        do4 = dout.view(B, K * G, S, D)
+        fwd["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), 20)
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        bwd["library_ms"] = timer(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True), 20)
+        if dtype == torch.float32:
+            bwd.update(_f64_errors(q, k, v, dout, grads, causal))
+    return [fwd, bwd]
+
+
+def _f64_errors(q, k, v, dout, grads, causal) -> dict:
+    """Distance of the kernel's and the plain version's gradients from a
+    float64 reference: the measure of BWD_TOL's reason."""
+    leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    S, T, D = q.shape[3], k.shape[2], q.shape[-1]
+    s = torch.einsum("bkgsd,bktd->bkgst", leaves[0] / D ** 0.5, leaves[1])
+    if causal:
+        s = s.masked_fill(torch.arange(T, device="cuda")[None, :]
+                          > torch.arange(S, device="cuda")[:, None], -1e30)
+    o = torch.einsum("bkgst,bktd->bkgsd", torch.softmax(s, -1), leaves[2])
+    gold = torch.autograd.grad(o, leaves, dout.double())
+    del s, o
+    plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    plain, _ = fa.flash_attention_plain(*plain_leaves, causal)
+    plain_g = torch.autograd.grad(plain, plain_leaves, dout)
+    return dict(
+        kernel_vs_f64=[(a.double() - b).abs().max().item()
+                       for a, b in zip(grads, gold)],
+        plain_vs_f64=[(a.double() - b).abs().max().item()
+                      for a, b in zip(plain_g, gold)])
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
@@ -215,6 +331,15 @@ def phase_check(timer) -> list:
             rows.append(_matmul_case(timer, dtype, M, K, N, gen))
         for name, K, N in products:
             rows.append(_matmul_case(timer, dtype, 4, K, N, gen, name))
+        for B, K, G, S, T, D, causal in (
+                (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
+                (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
+                (1, 2, 4, 128, 384, 128, True), (1, 2, 4, 128, 384, 128, False),
+                (1, 2, 4, 128, 300, 128, False),    # T % 128 != 0 (R1)
+                (2, 1, 4, 24, 24, 16, True),        # the reduced config
+                TRAIN_SHAPE + (True,)):
+            rows += _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen)
+            torch.cuda.empty_cache()
     for r in rows:
         emit(r)
     bad = [r for r in rows if not r["ok"]]
@@ -394,21 +519,20 @@ def _serve_source(cfg, B, P, n_new, tenant) -> ManualSource:
     return src
 
 
-def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
-    """torch.profiler over a few decode steps: device busy time (union of
-    device intervals), idle share against the unprofiled step time, and
-    the kernels that take the most device time."""
+def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
+    """torch.profiler over ``run()`` (``steps`` steps): device busy time
+    (union of device intervals), idle share against the unprofiled step
+    time ``wall_ms``, the kernels that take the most device time and, with
+    ``groups`` ({group: name substrings}), device time per group (the rest
+    under "other")."""
     from torch.profiler import ProfilerActivity, profile
-    cache = lm.init_cache(cfg, B, S)
-    tok = torch.zeros(B, dtype=torch.long, device="cuda")
-    for p in range(4):
-        lm.decode_step(params, cfg, cache, tok, p)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for p in range(4, 4 + steps):
-            lm.decode_step(params, cfg, cache, tok, p)
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0) / steps
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -426,16 +550,35 @@ def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
     for e in dev:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy / 1e3 / steps
+    by_group = {}
+    for name, (t, _) in by_name.items():
+        g = next((g for g, keys in (groups or {}).items()
+                  if any(k in name for k in keys)), "other")
+        by_group[g] = by_group.get(g, 0.0) + t / 1e3 / steps
     return dict(
+        ms_per_step_by_group=by_group,
         steps=steps, device_events=len(dev),
         device_busy_ms_per_step=busy_ms if dev else None,
-        wall_ms_per_step=wall_ms,
+        wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=profiled_ms,
         device_idle_share=(1.0 - busy_ms / wall_ms) if dev else None,
         top_kernels=[dict(name=n[:96], ms_per_step=t / 1e3 / steps,
                           calls_per_step=c / steps)
                      for n, (t, c) in top])
+
+
+def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
+    """The profile of a few decode steps, after four unprofiled ones."""
+    cache = lm.init_cache(cfg, B, S)
+    tok = torch.zeros(B, dtype=torch.long, device="cuda")
+    for p in range(4):
+        lm.decode_step(params, cfg, cache, tok, p)
+
+    def run():
+        for p in range(4, 4 + steps):
+            lm.decode_step(params, cfg, cache, tok, p)
+    return _device_profile(run, steps, wall_ms)
 
 
 def phase_serve() -> dict:
@@ -466,7 +609,8 @@ def phase_serve() -> dict:
     launches = ops.launch_counts()       # ... and ends here
     steps = 3 * (P + n_new)
     expect = {"decode_attention": cfg.n_layers * steps,
-              "tiered_matmul": 7 * cfg.n_layers * steps}
+              "tiered_matmul": 7 * cfg.n_layers * steps,
+              "flash_attention": 0, "flash_attention_bwd": 0}
     peak = torch.cuda.max_memory_allocated()
     logits = lm.decode_step(params, cfg, lm.init_cache(cfg, B, S),
                             outs[0][:, 0].cuda(), 0)
@@ -502,33 +646,152 @@ def phase_serve() -> dict:
     return res
 
 
-def kernel_line(checks, serve) -> dict:
-    """Each kernel's numbers at the serving path's shapes: decode attention
-    one bf16 call at batch 4, length 160 over the (4, 1024, 1, 256) cache
-    view; tiered_matmul one layer's 7 bf16 products at M = 4, summed."""
+def phase_train() -> dict:
+    """Full-width gemma-2b, bf16 parameters from a seeded generator,
+    AdamW (fp32 master and moments, lr 3e-4), per-layer remat, batch 2 x
+    2048 tokens from the ported pipeline, 5 steps through
+    ``train/loop.py`` under ``UnimemRuntime(H100_HBM_HOST)``."""
+    cfg = get_config("gemma-2b")
+    B, S, steps = 2, 2048, 5
+    tcfg = TrainConfig(steps=steps, global_batch=B, seq_len=S, lr=3e-4,
+                       remat=True, log_every=1, seed=0,
+                       machine=H100_HBM_HOST, device="cuda")
+    opt = AdamWConfig(lr=3e-4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()            # the main path starts here
+    t0 = time.perf_counter()
+    res = train(cfg, tcfg, opt)
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    rt = res.runtime
+    plan = rt.plan
+    names = ({m.obj for m in plan.moves}
+             | {o for r in plan.residents for o in r}) if plan else set()
+    # a chunk of a registered object counts for its parent
+    planned = sorted({rt.registry[n].parent or n if n in rt.registry else n
+                      for n in names})
+    expect = {"flash_attention": 2 * cfg.n_layers * steps,
+              "flash_attention_bwd": cfg.n_layers * steps,
+              "tiered_matmul": 0, "decode_attention": 0}
+    ms = [1e3 * t for t in res.step_times]
+    res_row = dict(
+        phase="train", arch=cfg.name, dtype="bfloat16",
+        n_params=cfg.n_params(), layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, batch=B, seq_len=S, steps=steps, remat=True,
+        optimizer=dict(lr=opt.lr, master_fp32=opt.master_fp32,
+                       moments=opt.moments_dtype),
+        losses=res.losses, grad_norms=res.grad_norms, ms_per_step=ms,
+        tokens_per_s=[B * S / t for t in res.step_times],
+        total_s=total_s, peak_mem_bytes=peak,
+        launches=launches, launches_expected=expect,
+        runtime=dict(phases=rt.phase_names(), planned=planned,
+                     registered={o.name: dict(bytes=o.size_bytes,
+                                              tier=o.tier, pinned=o.pinned)
+                                 for o in rt.registry if o.parent is None},
+                     strategy=plan.strategy if plan else None,
+                     stats=res.runtime_stats))
+    del res, rt, plan
+    res_row["profile"] = _train_profile(cfg, tcfg, opt, min(ms[1:]))
+    print(json.dumps(res_row, default=str), flush=True)
+    losses = res_row["losses"]
+    require(all(math.isfinite(x) for x in losses), "every loss finite")
+    require(sum(losses[-2:]) / 2 < losses[0],
+            "the mean of the last two losses is below the first")
+    require(launches == expect, f"launch counts {launches} == {expect}")
+    reg = res_row["runtime"]["registered"]
+    require(res_row["runtime"]["phases"] == ["data", "step", "ckpt"]
+            and "opt_state" in planned and "opt_state" in reg
+            and reg.get("params", {}).get("pinned"),
+            "the runtime planned opt_state (params pinned) over the "
+            "phases data, step, ckpt")
+    return res_row
+
+
+TRAIN_GROUPS = {
+    "flash_attention": ["flash_fwd_kernel"],
+    "flash_attention_bwd": ["dkdv_kernel", "dq_kernel", "delta_kernel",
+                            "split_sum_kernel"],
+    "cublas_products": ["nvjet", "gemm", "cutlass", "sm90_xmma"],
+}
+
+
+def _train_profile(cfg, tcfg, opt, wall_ms: float) -> dict:
+    """The profile of two training steps (outside the runtime), after one
+    unprofiled step, on a fresh model of the same configuration; then two
+    steps timed in halves with CUDA events: forward + backward
+    (``build_grads_step``) and the AdamW update."""
+    gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+    params = lm.init_params(cfg, gen, device="cuda")
+    state = init_opt_state(params, opt)
+    step = build_train_step(cfg, opt, remat=tcfg.remat, lr=tcfg.lr)
+    toks = torch.randint(0, cfg.vocab_size, (tcfg.global_batch, tcfg.seq_len),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks, "labels": toks}
+    step(params, state, batch)
+
+    def run():
+        for _ in range(2):
+            step(params, state, batch)
+    prof = _device_profile(run, 2, wall_ms, TRAIN_GROUPS)
+    grads_step = build_grads_step(cfg, remat=tcfg.remat)
+    halves = {"forward_backward_ms": [], "adamw_update_ms": []}
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        grads, _ = grads_step(params, batch)
+        ev[1].record()
+        adamw_update(grads, params, state, opt, tcfg.lr)
+        ev[2].record()
+        torch.cuda.synchronize()
+        halves["forward_backward_ms"].append(ev[0].elapsed_time(ev[1]))
+        halves["adamw_update_ms"].append(ev[1].elapsed_time(ev[2]))
+        del grads
+    prof.update(halves)
+    return prof
+
+
+def kernel_line(checks, serve, train_row) -> dict:
+    """Each kernel's numbers at its path's shapes: decode attention one
+    bf16 call at batch 4, length 160 over the (4, 1024, 1, 256) cache view;
+    tiered_matmul one layer's 7 bf16 products at M = 4, summed; flash
+    attention forward and backward one bf16 call at the training shape.
+    Launches are counted on each kernel's own path (serve or train)."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
                 and r["dtype"] == "bfloat16" and cond(r["shape"])]
 
-    da = pick("decode_attention",
-              lambda s: s["cache_view"] and s["length"] == 160)
-    mm = pick("tiered_matmul", lambda s: s["product"] is not None)
+    def train_shape(s):
+        return (s["B"], s["K"], s["G"], s["S"], s["T"], s["D"]) == TRAIN_SHAPE
+
+    flash_covers = ("one bf16 call at the training shape q (2,1,8,2048,256), "
+                    "k/v (2,1,2048,256), causal")
     out = []
-    for name, rows, covers in (
-            ("decode_attention", da, "one bf16 call, batch 4, length 160, "
-             "cache view (4,1024,1,256)"),
-            ("tiered_matmul", mm, "one layer's 7 bf16 products at M=4, "
-             "summed")):
+    for name, rows, covers, path in (
+            ("decode_attention",
+             pick("decode_attention",
+                  lambda s: s["cache_view"] and s["length"] == 160),
+             "one bf16 call, batch 4, length 160, cache view (4,1024,1,256)",
+             serve),
+            ("tiered_matmul",
+             pick("tiered_matmul", lambda s: s["product"] is not None),
+             "one layer's 7 bf16 products at M=4, summed", serve),
+            ("flash_attention", pick("flash_attention", train_shape),
+             flash_covers, train_row),
+            ("flash_attention_bwd", pick("flash_attention_bwd", train_shape),
+             flash_covers, train_row)):
         src, replaces = KERNELS[name]
         mine = [r for r in checks if r["kernel"] == name]
         row = dict(name=name, route="cuda", source=src, replaces=replaces,
-                   launches=serve["launches"][name],
+                   launches=path["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in rows),
                    checks=len(mine), checks_ok=sum(r["ok"] for r in mine))
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             row[key] = sum(r[key] for r in rows)
         row["bound_by"] = rows[0]["bound_by"]
         row["covers"] = covers
+        row["path"] = path["phase"]
         out.append(row)
     return {"kernels": out}
 
@@ -546,7 +809,8 @@ def main() -> int:
     phase_runtime(timer)
     phase_parity()
     serve = phase_serve()
-    line = kernel_line(checks, serve)
+    train_row = phase_train()
+    line = kernel_line(checks, serve, train_row)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,26 @@ def leaves(tree: Any) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _up_to(td: TreeDef, node: Any, out: List[Any]) -> None:
+    if td.kind == "leaf":
+        out.append(node)
+    elif td.kind is dict:
+        for k, c in zip(td.keys, td.children):
+            _up_to(c, node[k], out)
+    elif td.kind is not None:
+        for i, c in enumerate(td.children):
+            _up_to(c, node[i], out)
+
+
+def flatten_up_to(treedef: TreeDef, tree: Any) -> List[Any]:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef`` (as
+    ``treedef.flatten_up_to`` in JAX): e.g. a quantized moment's
+    ``{"q", "s"}`` dict where the parameters have a tensor."""
+    out: List[Any] = []
+    _up_to(treedef, tree, out)
+    return out
+
+
 def _build(td: TreeDef, it: Iterator[Any]) -> Any:
     if td.kind == "leaf":
         return next(it)

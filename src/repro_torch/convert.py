@@ -1,9 +1,12 @@
-"""Carry the reference package's parameters across, bit for bit.
+"""Carry the reference package's trees across, bit for bit.
 
-``params_from_numpy(tree)`` takes the reference's parameter tree as numpy
-arrays (``jax.device_get(params)``) and returns the port's dict of
-tensors.  bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
-``torch.from_numpy`` rejects, so they travel through a ``uint16`` view.
+``params_from_numpy(tree)`` takes any of the reference's trees as numpy
+arrays (``jax.device_get(tree)``) -- parameters, or the optimizer state
+with its int32 scalar ``step``, int8 ``{"q", "s"}`` moments and bfloat16
+moments -- and returns the same structure of tensors.  bfloat16 arrays
+arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so
+they travel through a ``uint16`` view.  Checkpoints cross between the
+packages on disk (:mod:`.checkpoint`).
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
-    """Nested dicts (and lists/tuples) of numpy arrays -> the same structure
-    of tensors on ``device``."""
+    """Nested dicts (and lists/tuples) of numpy arrays, scalars included
+    -> the same structure of tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

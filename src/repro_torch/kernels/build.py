@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled at first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-under a file name that carries a hash of the source, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  Nothing is compiled
-when the package is imported.
+under a file name that carries a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged
+one is loaded as it is.  Nothing is compiled when the package is
+imported.
 """
 
 from __future__ import annotations
@@ -38,7 +39,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -11,19 +11,26 @@ from __future__ import annotations
 from typing import Dict
 
 from . import decode_attention as _da
+from . import flash_attention as _fa
 from . import tiered_matmul as _mm
 
 decode_attention = _da.decode_attention
 tiered_matmul = _mm.tiered_matmul
+flash_attention = _fa.flash_attention
 
-_MODULES = {"decode_attention": _da, "tiered_matmul": _mm}
+#: counter name -> (module, attribute holding its launches)
+_COUNTERS = {"decode_attention": (_da, "launches"),
+             "tiered_matmul": (_mm, "launches"),
+             "flash_attention": (_fa, "launches"),
+             "flash_attention_bwd": (_fa, "bwd_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per entry point since the last reset."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -31,3 +31,19 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def tiered_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q: (B, K, G, S, D); k, v: (B, K, T, D) -> (B, K, G, S, D).  Causal
+    masking is top-left aligned (key t is hidden from query s when
+    t > s)."""
+    S, D, T = q.shape[3], q.shape[-1], k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bkgsd,bktd->bkgst", q.float() * scale, k.float())
+    if causal:
+        mask = (torch.arange(T, device=q.device)[None, :]
+                > torch.arange(S, device=q.device)[:, None])
+        s = s.masked_fill(mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,bktd->bkgsd", p, v.float()).to(q.dtype)

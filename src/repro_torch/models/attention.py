@@ -1,9 +1,13 @@
-"""GQA/MQA attention: parameters and the one-token decode against a KV
-cache (counterpart of the reference's ``attn_decode``).
+"""GQA/MQA attention: parameters, the full-sequence causal forward of
+training (counterpart of the reference's ``attn_forward``) and the
+one-token decode against a KV cache (``attn_decode``).
 
-Every projection goes through the ``tiered_matmul`` kernel and the
-attention itself through the ``decode_attention`` kernel (both via
-:mod:`..kernels.ops`).  The cache is updated in place.
+The full-sequence forward leaves its projections to ``torch.matmul``, as
+the reference leaves them to XLA, and runs the attention itself through
+the ``flash_attention`` kernel and its backward kernel.  The decode sends
+every projection through the ``tiered_matmul`` kernel and the attention
+through the ``decode_attention`` kernel (all via :mod:`..kernels.ops`);
+its cache is updated in place.
 """
 
 from __future__ import annotations
@@ -35,6 +39,37 @@ def init_attn_params(generator: torch.Generator, cfg: ArchConfig,
             p[name] = torch.zeros((L, width), dtype=dtype,
                                   device=generator.device)
     return p
+
+
+def attn_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Causal self-attention over a full sequence.  x: (B, S, d); cos/sin:
+    (S, rotary_dim // 2) tables (:func:`.common.rope_frequencies`).
+    Returns (B, S, d)."""
+    B, S, _ = x.shape
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.matmul(x, params["wq"])
+    k = torch.matmul(x, params["wk"])
+    v = torch.matmul(x, params["wv"])
+    if cfg.attn_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.view(B, S, H, Dh)
+    k = k.view(B, S, K, Dh)
+    v = v.view(B, S, K, Dh)
+    rd = int(Dh * cfg.rotary_fraction)
+    if rd:
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, cos, sin, positions=pos, rotary_dim=rd)
+        k = apply_rope(k, cos, sin, positions=pos, rotary_dim=rd)
+    # head h = k * G + g, as the reference's (B, S, K, G, D) reshape
+    qg = q.view(B, S, K, H // K, Dh).permute(0, 2, 3, 1, 4)  # (B,K,G,S,D)
+    out = ops.flash_attention(qg, k.permute(0, 2, 1, 3),
+                              v.permute(0, 2, 1, 3), causal=True)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * Dh)
+    return torch.matmul(out, params["wo"])
 
 
 def attn_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,

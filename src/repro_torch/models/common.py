@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import _tree
+
 
 # ---------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -32,23 +34,45 @@ ACTIVATIONS: dict = {
 
 
 # ---------------------------------------------------------------- rotary
+def _inv_freq(rotary_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                                         device=device) / rotary_dim))
+
+
+def rope_frequencies(head_dim: int, n_pos: int, theta: float = 10000.0,
+                     rotary_dim: Optional[int] = None, device="cuda"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables of shape (n_pos, rotary_dim // 2), float32, for
+    positions ``0..n_pos-1``: the reference's ``rope_frequencies``, sized
+    to the positions a sequence uses rather than ``max_position``."""
+    rd = rotary_dim or head_dim
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)
+    ang = torch.outer(pos, _inv_freq(rd, theta, device))
+    return torch.cos(ang), torch.sin(ang)
+
+
 def rope_at(pos: int, rotary_dim: int, theta: float, device
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin of one position, (rotary_dim // 2,) float32 — the row
     ``pos`` of the reference's ``rope_frequencies`` tables, computed alone
     (the full table at gemma-2b's max_position would be 285 MB)."""
-    inv = 1.0 / (theta ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
-                                        device=device) / rotary_dim))
-    ang = inv * float(pos)          # a host scalar: no copy to the device
+    ang = _inv_freq(rotary_dim, theta, device) * float(pos)   # host scalar
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
                rotary_dim: Optional[int] = None) -> torch.Tensor:
-    """Rotate pairs (interleaved-half convention) of ``x`` (..., D) at one
-    position; the rotation runs in fp32 and the result is in x's dtype."""
+    """Rotate pairs (interleaved-half convention); the rotation runs in
+    fp32 and the result is in x's dtype.  Without ``positions``: ``x``
+    (..., D) at the one position of ``cos``/``sin`` (:func:`rope_at`).
+    With ``positions`` (S,): ``x`` (..., S, H, D) and tables from
+    :func:`rope_frequencies`, as the reference's ``apply_rope``."""
     D = x.shape[-1]
     rd = rotary_dim or D
+    if positions is not None:
+        cos = cos[positions][..., None, :]          # (S, 1, rd/2)
+        sin = sin[positions][..., None, :]
     xr, xp = x[..., :rd], x[..., rd:]
     x1, x2 = xr[..., : rd // 2].float(), xr[..., rd // 2:].float()
     out1 = x1 * cos - x2 * sin
@@ -72,3 +96,8 @@ def embed_init(generator: torch.Generator, shape: Tuple[int, ...],
                dtype=torch.bfloat16, std: float = 0.02) -> torch.Tensor:
     return (torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device) * std).to(dtype)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list / tuple."""
+    return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))

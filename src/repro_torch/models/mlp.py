@@ -1,6 +1,9 @@
-"""Gated MLP (SwiGLU / GeGLU), every product through the ``tiered_matmul``
-kernel.  The plain two-layer MLP of other families is queued in
-ROADMAP.md (queue 1: "The other nine configs and the moe family")."""
+"""Gated MLP (SwiGLU / GeGLU): :func:`mlp_forward` over a full sequence
+leaves its products to ``torch.matmul`` (as the reference leaves them to
+XLA); :func:`mlp_decode` sends each product of the one-token decode
+through the ``tiered_matmul`` kernel.  The plain two-layer MLP of other
+families is queued in ROADMAP.md (queue 1: "The other nine configs and
+the moe family")."""
 
 from __future__ import annotations
 
@@ -25,14 +28,25 @@ def init_mlp_params(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
-def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, d) -> (B, d)."""
+def _gated(params: Dict[str, torch.Tensor], x: torch.Tensor,
+           cfg: ArchConfig, matmul) -> torch.Tensor:
     _require_gated(cfg)
     act = ACTIVATIONS[cfg.activation]
-    gate = act(ops.tiered_matmul(x, params["w_gate"]))
-    return ops.tiered_matmul(gate * ops.tiered_matmul(x, params["w_up"]),
-                             params["w_down"])
+    gate = act(matmul(x, params["w_gate"]))
+    return matmul(gate * matmul(x, params["w_up"]), params["w_down"])
+
+
+def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """Full sequence (training): x (B, S, d) -> (B, S, d), ``torch.matmul``."""
+    return _gated(params, x, cfg, torch.matmul)
+
+
+def mlp_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    """One-token decode: x (B, d) -> (B, d), each product through the
+    ``tiered_matmul`` kernel, whatever B is."""
+    return _gated(params, x, cfg, ops.tiered_matmul)
 
 
 def _require_gated(cfg: ArchConfig) -> None:

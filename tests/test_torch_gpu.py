@@ -161,3 +161,101 @@ def test_reduced_gemma_serves_the_same_tokens_on_card_and_cpu(cuda):
             .generate(prompts, 5).cpu()
             for d, p in (("cpu", cpu), ("cuda", gpu))]
     assert torch.equal(outs[0], outs[1])
+
+
+# the flash-attention backward in fp32 sums dk and dv over G * S stacked
+# rows in another order than the plain version (see chip_smoke.BWD_TOL)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,S,T,D,causal", [
+    (1, 1, 1, 128, 128, 128, True), (2, 2, 2, 256, 256, 128, False),
+    (1, 2, 4, 128, 384, 128, True), (1, 2, 4, 128, 300, 128, False),
+    (2, 1, 4, 24, 24, 16, True), (1, 1, 3, 70, 45, 64, True),
+    (2, 1, 8, 256, 256, 256, True)])
+def test_flash_attention_kernels_match_plain(cuda, dtype, B, K, G, S, T, D,
+                                             causal):
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q, do = _randn((B, K, G, S, D), dtype, 8), _randn((B, K, G, S, D), dtype, 9)
+    k, v = _randn((B, K, T, D), dtype, 10), _randn((B, K, T, D), dtype, 11)
+    before = (fa.launches, fa.bwd_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain, plain_lse = fa.flash_attention_plain(*leaves, causal)
+    torch.testing.assert_close(out.float(), plain.detach().float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, plain_lse.detach(), rtol=2e-5, atol=2e-5)
+    for g, w in zip(grads, torch.autograd.grad(plain, leaves, do)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=BWD_TOL[dtype],
+                                   atol=BWD_TOL[dtype])
+
+
+def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q = _randn((1, 1, 2, 16, 12), torch.float32, 0)        # D % 8 != 0
+    k = _randn((1, 1, 16, 12), torch.float32, 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention_fwd(q, k, k)
+    q = _randn((1, 2, 2, 16, 16), torch.float32, 0)
+    k = _randn((1, 16, 2, 16), torch.float32, 1).permute(0, 2, 1, 3)
+    assert not k.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q, k, k)
+    out = fa.flash_attention(q, k, k)          # the autograd entry copies
+    torch.testing.assert_close(
+        out, fa.flash_attention_plain(q, k, k)[0], rtol=2e-5, atol=2e-5)
+
+
+def test_reduced_train_step_on_card_matches_the_cpu(cuda):
+    """One training step of reduced gemma-2b with fp32 parameters: the
+    kernels on the card against the plain versions on the CPU."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train.step import build_train_step
+    cfg = get_config("gemma-2b").reduced()
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                device=dev, dtype=torch.float32)
+        state = init_opt_state(params, AdamWConfig(lr=1e-3))
+        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        ops.reset_launch_counts()
+        step = build_train_step(cfg, AdamWConfig(lr=1e-3), lr=1e-3)
+        out[dev] = (step(params, state, batch), ops.launch_counts())
+    (p_cpu, _, m_cpu), n_cpu = out["cpu"]
+    (p_gpu, _, m_gpu), n_gpu = out["cuda"]
+    assert set(n_cpu.values()) == {0}
+    assert n_gpu["flash_attention"] == 2 * cfg.n_layers      # remat
+    assert n_gpu["flash_attention_bwd"] == cfg.n_layers
+    assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                 rel=1e-5)
+    # Adam's first update is +-lr per element (see test_torch_train.py)
+    for a, b in zip(_tree.leaves(p_gpu), _tree.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-3)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    from repro_torch import _tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = get_config("gemma-2b").reduced()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    state = {"params": params, "opt": init_opt_state(
+        params, AdamWConfig(moments_dtype="int8"))}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(7, state, blocking=True)
+    step, back = mgr.restore()
+    assert step == 7
+    for a, b in zip(_tree.leaves(state), _tree.leaves(back)):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
