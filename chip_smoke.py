@@ -7,23 +7,28 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
-2. build    -- the four kernels compiled from ``src/repro_torch/csrc`` with
+2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, all at once, with the ptxas report;
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
-               shapes, fp32 and bf16, with kernel / plain / bound /
-               library times; the flash-attention backward against
-               autograd through the plain forward;
+               shapes of gemma-2b and zamba2-1.2b, with kernel / plain /
+               bound / library times; the flash-attention and SSD-scan
+               backward kernels against autograd through the plain forward;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
-5. parity   -- reduced gemma-2b, fp32 weights, the card against the CPU;
+5. parity   -- reduced gemma-2b and zamba2-1.2b, fp32 weights, the card
+               against the CPU;
 6. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
                served under the runtime, with every kernel launch counted;
 7. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
                tokens, AdamW, per-layer remat) through ``train/loop.py``
                under the runtime, with every kernel launch counted;
-8. kernels  -- one line with each kernel's numbers.
+8. serve_zamba2 -- full-width zamba2-1.2b (38 Mamba-2 layers, a shared
+               attention block every 6, d_model 2048) served the same way;
+9. train_zamba2 -- full-width zamba2-1.2b trained for 5 steps of batch
+               2 x 4096 tokens (16 chunks of the SSD scan a sequence);
+10. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
 Times are CUDA-event times over many queued launches (median), each
@@ -32,6 +37,7 @@ pair, with the L2 cache flushed before each launch, since the serving and
 training paths find weights, cache and activations cold.  Needs one CUDA card and nvcc; it stops at once without them.
 """
 
+import gc
 import json
 import math
 import os
@@ -53,6 +59,7 @@ from repro_torch.core import (H100_HBM_HOST, ManualSource,  # noqa: E402
                               RuntimeConfig, UnimemRuntime)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.tiered_matmul import tiered_matmul_plain  # noqa: E402
@@ -75,7 +82,34 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 # (the kernel_vs_f64 / plain_vs_f64 fields of that check row), so the
 # reference's 2e-5 would measure the plain version's rounding.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The SSD scan is fp32 only: the reference's tolerance (tests/test_kernels.py).
+# Its backward is held to the same 1e-4, on d(log a) = da * a rather than
+# da (da = d(log a) / a magnifies a rounding of d(log a) by 1/a); the
+# float64 columns of the training-shape row measure both versions' error.
+SSD_TOL = 1e-4
+# Decays of the SSD checks.  "strong": a = sigmoid(randn), mean log a about
+# -0.8, so the carried state, the dS carry and sub-tiles two or more below
+# the diagonal reach the outputs scaled by e^-50 or less and a kernel that
+# dropped them would pass.  "near1": a = exp(-U(1e-3, 0.02)), as real
+# Mamba-2 heads (0.98 to 0.999): e^{cum_L} over a chunk of 256 is ~0.07 and
+# a sub-tile 192 rows below the diagonal keeps ~0.13, so those terms weigh.
+SSD_DECAY_RANGE = (1e-3, 0.02)
+# ... and there d(log a) is a reverse cumulative sum over up to 256
+# positions whose partial sums reach |240|: at the training shape the fp32
+# plain version lies 1.4e-4 and the kernel 2.9e-4 from a float64 run of
+# the plain version, 3.05e-4 apart, while kernels that drop the carry or
+# the far sub-tiles lie 6 or more away (H100).  d(log a) with decays near
+# 1 is held to this; every other output of every SSD check to SSD_TOL.
+SSD_DLOGA_NEAR1_TOL = 1e-3
 PARITY_TOL = 1e-4
+# zamba2's decode keeps each layer's conv window in bf16 (as the reference
+# does): where the card's and the CPU's fp32 in_proj outputs straddle a
+# bf16 rounding boundary, a window value rounds an ulp apart, and later
+# layers and steps follow it.  On an H100 the logits lie 2.2e-4 apart with
+# the bf16 window, 1.2e-5 with the window in fp32 on both sides (held to
+# PARITY_TOL, as the forward is), and 0.70 with a decode kernel that drops
+# the newest key
+ZAMBA_DECODE_TOL = 1e-3
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
@@ -87,8 +121,19 @@ KERNELS = {
     # (models/attention.py:43) by autodiff
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention.py:28"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:60"),
+    # the TPU kernel has no backward: JAX differentiates its twin
+    # (models/mamba2.py:26 chunked_linear_scan) by autodiff
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:23"),
 }
 TRAIN_SHAPE = (2, 1, 8, 2048, 2048, 256)       # B, K, G, S, T, D
+# zamba2-1.2b's training step (batch 2 x 4096): the shared block's
+# attention (32 heads over 32 KV heads of 64) and the SSD scan (64 heads,
+# N = P = 64, chunks of 256, k and q broadcast over the heads)
+ZAMBA_FLASH_SHAPE = (2, 32, 1, 4096, 4096, 64)
+SSD_TRAIN_SHAPE = (2, 64, 4096, 64, 64, 256)   # B, H, S, N, P, chunk
 
 
 def emit(obj) -> None:
@@ -254,7 +299,7 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen):
                dq_dk_dv_max_abs_err=[e for e, _ in g_err],
                tol=BWD_TOL[dtype], ok=all(o for _, o in g_err))
     del leaves, plain, plain_lse, want
-    if (B, K, G, S, T, D) == TRAIN_SHAPE:
+    if (B, K, G, S, T, D) in (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE):
         size = q.element_size()
         pairs = B * K * G * _visible_pairs(S, T, causal)
         io = (2 * q.numel() + 2 * k.numel()) * size + lse.numel() * 4
@@ -281,7 +326,7 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen):
         o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
         bwd["library_ms"] = timer(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), do4, retain_graph=True), 20)
-        if dtype == torch.float32:
+        if dtype == torch.float32 and (B, K, G, S, T, D) == TRAIN_SHAPE:
             bwd.update(_f64_errors(q, k, v, dout, grads, causal))
     return [fwd, bwd]
 
@@ -308,6 +353,120 @@ def _f64_errors(q, k, v, dout, grads, causal) -> dict:
                       for a, b in zip(plain_g, gold)])
 
 
+def _ssd_work(B, H, S, N, P, chunk) -> tuple:
+    """Useful flops of the forward and of the backward for these shapes:
+    the causal pairs of each chunk (a ragged last chunk counted as it is),
+    the inter-chunk products and the state update."""
+    pairs = sum(q * (q + 1) // 2
+                for q in (min(chunk, S - s0) for s0 in range(0, S, chunk)))
+    fwd = B * H * (pairs * 2 * (N + P) + S * 4 * N * P)
+    bwd = B * H * (pairs * 2 * (2 * P + 3 * N) + S * 8 * N * P)
+    return float(fwd), float(bwd)
+
+
+def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
+    """Forward kernel against the plain forward (y, final state, chunk
+    states) and backward kernel against autograd through the plain
+    forward, with an initial state and a final-state gradient; in the
+    model's layout, (B, S, H, .) seen as (B, H, S, .), k and q broadcast
+    over H where ``bcast``; decays ``decay`` ("strong" or "near1", see
+    SSD_DECAY_RANGE).  Float64 columns at the training shape; timed there
+    with decays near 1 only."""
+    r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                   device="cuda")
+    if decay == "near1":
+        lo, hi = SSD_DECAY_RANGE
+        a = torch.exp(-(lo + (hi - lo) * torch.rand(
+            (B, S, H), generator=gen, device="cuda")))
+    else:
+        a = torch.sigmoid(r(B, S, H))
+    if bcast:
+        k, q = (r(B, S, N)[:, :, None].expand(B, S, H, N) * 0.3
+                for _ in range(2))
+    else:
+        k, q = r(B, S, H, N) * 0.3, r(B, S, H, N) * 0.3
+    v = r(B, S, H, P) * 0.3
+    a, k, v, q = (t.transpose(1, 2) for t in (a, k, v, q))
+    s0, dy, dfin = r(B, H, N, P) * 0.3, r(B, H, S, P), r(B, H, N, P)
+    y, fin, states = ssd.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    grads = ssd.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, True)
+    leaves = [t.detach().clone().requires_grad_() for t in (a, k, v, q, s0)]
+    py, pfin, pstates = ssd._plain_forward(*leaves[:4], chunk, leaves[4])
+    want = torch.autograd.grad([py, pfin], leaves, [dy, dfin])
+    torch.cuda.synchronize()
+    errs = [_compare(x, w.detach(), torch.float32, {torch.float32: SSD_TOL})
+            for x, w in ((y, py), (fin, pfin), (states, pstates))]
+    # d(log a) = da * a for the decays; dk, dq per head
+    g_cmp = [(g * a if i == 0 else g, w * a if i == 0 else w)
+             for i, (g, w) in enumerate(zip(grads, want))]
+    dloga_tol = SSD_DLOGA_NEAR1_TOL if decay == "near1" else SSD_TOL
+    g_err = [_compare(g, w, torch.float32,
+                      {torch.float32: dloga_tol if i == 0 else SSD_TOL})
+             for i, (g, w) in enumerate(g_cmp)]
+    shape = dict(B=B, H=H, S=S, N=N, P=P, chunk=chunk, bcast=bcast,
+                 decay=decay)
+    fwd = dict(phase="check", kernel="ssd_scan", dtype="float32", shape=shape,
+               max_abs_err=max(e for e, _ in errs),
+               y_final_states_max_abs_err=[e for e, _ in errs],
+               tol=SSD_TOL, ok=all(o for _, o in errs))
+    bwd = dict(phase="check", kernel="ssd_scan_bwd", dtype="float32",
+               shape=shape, max_abs_err=max(e for e, _ in g_err),
+               dloga_dk_dv_dq_dinit_max_abs_err=[e for e, _ in g_err],
+               tol=SSD_TOL, dloga_tol=dloga_tol,
+               ok=all(o for _, o in g_err))
+    del leaves, py, pfin, pstates, want
+    if (B, H, S, N, P, chunk) != SSD_TRAIN_SHAPE:
+        return [fwd, bwd]
+    bwd.update(_ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads))
+    if decay == "near1":
+        nc = -(-S // chunk)
+        kq = 2 * (k[:, 0].numel() if bcast else k.numel()) * 4
+        io = (a.numel() + v.numel()) * 4 + kq
+        f_flops, b_flops = _ssd_work(B, H, S, N, P, chunk)
+        # forward: reads a, k, q, v; writes y, the final and chunk states
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+            io + (v.numel() + B * H * (nc + 1) * N * P) * 4, f_flops,
+            torch.float32)
+        # backward: reads a, k, q, v, dy and the states; writes da, dv and
+        # the per-head dk, dq
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+            io + (2 * v.numel() + B * H * (nc + 1) * N * P + a.numel()
+                  + 2 * B * H * S * N) * 4, b_flops, torch.float32)
+        _, fin0, st0 = ssd.ssd_scan_fwd(a, k, v, q, chunk, save_states=True)
+        fwd["ms"] = timer(lambda: ssd.ssd_scan_fwd(a, k, v, q, chunk,
+                                                   save_states=True), 20)
+        fwd["plain_ms"] = timer(lambda: ssd._plain_forward(a, k, v, q, chunk),
+                                10)
+        bwd["ms"] = timer(lambda: ssd.ssd_scan_bwd(
+            a, k, v, q, dy, st0, fin0, None, chunk, False), 20)
+        bwd["plain_ms"] = timer(lambda: ssd.ssd_scan_bwd_plain(
+            a, k, v, q, dy, st0, fin0, None, chunk, False), 10)
+        # no single PyTorch call computes the scan or its gradient
+        fwd["library_ms"] = bwd["library_ms"] = None
+    return [fwd, bwd]
+
+
+def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads) -> dict:
+    """Distance of the kernel's and the fp32 plain version's gradients
+    (d(log a), dk, dv, dq, d s0) from the plain version's in float64."""
+    def grad_of(dtype):
+        leaves = [t.detach().to(dtype).clone().requires_grad_()
+                  for t in (a, k, v, q, s0)]
+        y, fin, _ = ssd._plain_forward(*leaves[:4], chunk, leaves[4])
+        g = torch.autograd.grad([y, fin], leaves,
+                                [dy.to(dtype), dfin.to(dtype)])
+        return [x * leaves[0].detach() if i == 0 else x
+                for i, x in enumerate(g)]
+    gold = grad_of(torch.float64)
+    plain = grad_of(torch.float32)
+    mine = [g * a if i == 0 else g for i, g in enumerate(grads)]
+    return dict(
+        kernel_vs_f64=[(x.double() - w).abs().max().item()
+                       for x, w in zip(mine, gold)],
+        plain_vs_f64=[(x.double() - w).abs().max().item()
+                      for x, w in zip(plain, gold)])
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
@@ -317,6 +476,12 @@ def phase_check(timer) -> list:
     products = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
                 ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
                 ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+    zcfg = get_config("zamba2-1.2b")
+    zd, d_in = zcfg.d_model, zcfg.ssm_expand * zcfg.d_model
+    zproj = 2 * d_in + 2 * zcfg.ssm_state + d_in // zcfg.ssm_head_dim
+    zamba_products = [("in_proj", zd, zproj), ("out_proj", d_in, zd),
+                      ("wq", zd, zd), ("w_gate", zd, zcfg.d_ff),
+                      ("w_down", zcfg.d_ff, zd)]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for T, length in ((1024, 700), (512, 512), (2048, 1), (700, 650),
@@ -331,6 +496,16 @@ def phase_check(timer) -> list:
             rows.append(_matmul_case(timer, dtype, M, K, N, gen))
         for name, K, N in products:
             rows.append(_matmul_case(timer, dtype, 4, K, N, gen, name))
+        # zamba2-1.2b's decode: the shared block (G = 1, K = 32, D = 64)
+        # and its products, and each Mamba-2 layer's in_proj (N = 8384, a
+        # multiple of no tile) and out_proj
+        for length in (0, 1, 160, 1024):
+            rows.append(_decode_case(timer, dtype, 4, zcfg.n_kv_heads, 1,
+                                     zcfg.resolved_head_dim, 1024, length,
+                                     True, gen))
+        for name, K, N in zamba_products:
+            rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
+                                     "zamba2:" + name))
         for B, K, G, S, T, D, causal in (
                 (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
                 (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
@@ -339,6 +514,21 @@ def phase_check(timer) -> list:
                 (2, 1, 4, 24, 24, 16, True),        # the reduced config
                 TRAIN_SHAPE + (True,)):
             rows += _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen)
+            torch.cuda.empty_cache()
+    # zamba2's shared attention in training, bf16 as the path runs it
+    rows += _flash_case(timer, torch.bfloat16, *ZAMBA_FLASH_SHAPE, True, gen)
+    torch.cuda.empty_cache()
+    zr = zcfg.reduced()
+    for decay in ("strong", "near1"):
+        for B, H, S, N, P, chunk, bcast in (
+                (2, 3, 512, 64, 64, 256, False),      # tests/test_kernels.py
+                (2, 3, 300, 32, 64, 128, False),
+                (2, 3, 256, 16, 16, 256, False),
+                (2, zr.ssm_expand * zr.d_model // zr.ssm_head_dim, 64,
+                 zr.ssm_state, zr.ssm_head_dim, 64, True),  # reduced config
+                (1, 4, 1000, 64, 64, 256, True),      # ragged last chunk
+                SSD_TRAIN_SHAPE + (True,)):
+            rows += _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen)
             torch.cuda.empty_cache()
     for r in rows:
         emit(r)
@@ -470,10 +660,36 @@ def phase_runtime(timer) -> dict:
     return res
 
 
-def phase_parity() -> dict:
-    """Reduced gemma-2b with the same fp32 weights on the card and on the
-    CPU: identical greedy tokens, logits within PARITY_TOL."""
-    cfg = get_config("gemma-2b").reduced()
+def _decode_errors(cfg, cpu, gpu, prompts, S, window=None) -> dict:
+    """Largest card-vs-CPU distance of the logits over one decode step per
+    prompt token and, for zamba2, of each layer's SSM state and conv window
+    after them; ``window`` replaces the conv window's dtype on both sides."""
+    B, P = prompts.shape
+    caches = {d: lm.init_cache(cfg, B, S, device=d) for d in ("cpu", "cuda")}
+    if window is not None:
+        for c in caches.values():
+            c["mamba"]["conv"] = c["mamba"]["conv"].to(window)
+    err = 0.0
+    for i in range(P):
+        a = lm.decode_step(cpu, cfg, caches["cpu"], prompts[:, i], i)
+        b = lm.decode_step(gpu, cfg, caches["cuda"], prompts[:, i].cuda(), i)
+        err = max(err, (a - b.cpu()).abs().max().item())
+    out = dict(logits=err)
+    for name, t in caches["cuda"].get("mamba", {}).items():
+        out[name] = (t.float().cpu()
+                     - caches["cpu"]["mamba"][name].float()).abs().max().item()
+    return out
+
+
+def phase_parity(arch: str) -> dict:
+    """A reduced config with the same fp32 weights on the card and on the
+    CPU: identical greedy tokens, logits within PARITY_TOL after each
+    decode step and, for zamba2 (whose forward runs the SSD scan), after
+    ``forward`` over three chunks of the scan (the last ragged).  zamba2's
+    decode runs twice: with its bf16 conv window (ZAMBA_DECODE_TOL on the
+    logits) and with the window in fp32 on both sides (PARITY_TOL on the
+    logits, the SSM state and the window)."""
+    cfg = get_config(arch).reduced()
     # the same draws from one CPU generator, placed on either device
     cpu, gpu = (lm.init_params(cfg, torch.Generator().manual_seed(0),
                                device=d, dtype=torch.float32)
@@ -485,30 +701,79 @@ def phase_parity() -> dict:
     for dev, params in (("cpu", cpu), ("cuda", gpu)):
         eng = ServeEngine(cfg, params, max_seq=S, batch=B, device=dev)
         toks[dev] = eng.generate(prompts, n_new).cpu()
-    err = 0.0
-    caches = {d: lm.init_cache(cfg, B, S, device=d) for d in ("cpu", "cuda")}
-    for i in range(P):
-        a = lm.decode_step(cpu, cfg, caches["cpu"], prompts[:, i], i)
-        b = lm.decode_step(gpu, cfg, caches["cuda"], prompts[:, i].cuda(), i)
-        err = max(err, (a - b.cpu()).abs().max().item())
     same = torch.equal(toks["cpu"], toks["cuda"])
+    hybrid = cfg.block_pattern == "mamba_shared_attn"
+    dec = _decode_errors(cfg, cpu, gpu, prompts, S)
     res = dict(phase="parity", arch=cfg.name, params="float32",
-               tokens_identical=same, logits_max_abs_err=err,
-               tol=PARITY_TOL)
+               tokens_identical=same, logits_max_abs_err=dec["logits"],
+               tol=ZAMBA_DECODE_TOL if hybrid else PARITY_TOL,
+               forward_tol=PARITY_TOL)
+    if hybrid:
+        res["decode_bf16_window_max_abs_err"] = dec
+        res["decode_fp32_window_max_abs_err"] = _decode_errors(
+            cfg, cpu, gpu, prompts, S, torch.float32)
+        # 600 positions: chunks of 256, 256 and 88, so the state is carried
+        seq = torch.randint(0, cfg.vocab_size, (B, 600),
+                            generator=torch.Generator().manual_seed(2))
+        ops.reset_launch_counts()
+        want, _ = lm.forward(cpu, cfg, seq)
+        got, _ = lm.forward(gpu, cfg, seq.cuda())
+        res["forward_launches"] = ops.launch_counts()
+        res["forward_logits_max_abs_err"] = (got.cpu() - want).abs().max().item()
     emit(res)
     require(same, "greedy tokens identical on card and CPU")
-    require(err <= PARITY_TOL, "logits within tolerance")
+    require(res["logits_max_abs_err"] <= res["tol"], "logits within tolerance")
+    if hybrid:
+        require(all(e <= PARITY_TOL for e in
+                    res["decode_fp32_window_max_abs_err"].values()),
+                "with an fp32 conv window, decode logits, SSM state and "
+                "window within PARITY_TOL")
+        require(res["forward_launches"]["ssd_scan"] == cfg.n_layers,
+                "the forward ran the SSD kernel on every layer")
+        require(res["forward_logits_max_abs_err"] <= PARITY_TOL,
+                "forward logits within tolerance")
     return res
+
+
+def _expected_launches(cfg, path: str, steps: int) -> dict:
+    """Exact launches of each kernel entry point on a path.  serve: per
+    decode step, gemma-2b 18 decode attentions and 7 x 18 products; zamba2
+    7 decode attentions (the shared block's applications) and 2 x 38 + 7 x 7
+    products.  train: per step, every layer's forward twice (remat) and
+    its backward once: gemma-2b 36 + 18 flash launches; zamba2 14 + 7 flash
+    and 76 + 38 SSD launches, 380 and 190 over 5 steps."""
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    L = cfg.n_layers
+    attn = L if cfg.block_pattern == "attn" else -(-L // cfg.attn_every)
+    if path == "serve":
+        counts["decode_attention"] = attn * steps
+        mamba = 2 * L if cfg.block_pattern == "mamba_shared_attn" else 0
+        counts["tiered_matmul"] = (7 * attn + mamba) * steps
+    else:
+        counts["flash_attention"] = 2 * attn * steps
+        counts["flash_attention_bwd"] = attn * steps
+        if cfg.block_pattern == "mamba_shared_attn":
+            counts["ssd_scan"] = 2 * L * steps
+            counts["ssd_scan_bwd"] = L * steps
+    return counts
 
 
 def _serve_source(cfg, B, P, n_new, tenant) -> ManualSource:
     """Analytic access counts (bytes / cacheline) of one request's phases:
     every step reads all weights once (the tied head reads the whole
-    embedding) and the KV cache rows written so far."""
+    embedding), the KV cache rows written so far and, for zamba2, reads and
+    writes every layer's SSM state and conv window."""
     line = H100_HBM_HOST.cacheline_bytes
     wbytes = 2 * cfg.n_params()
-    kv_row = 2 * cfg.n_layers * B * cfg.n_kv_heads * cfg.resolved_head_dim * 2
-    kv = lambda a, b: sum(kv_row * (p + 1) for p in range(a, b))  # noqa: E731
+    n_kv, state = cfg.n_layers, 0
+    if cfg.block_pattern == "mamba_shared_attn":
+        n_kv = -(-cfg.n_layers // cfg.attn_every)
+        state = 2 * sum(t.numel() * t.element_size() for t in
+                        lm.init_cache(cfg, B, 1, device="meta")["mamba"]
+                        .values())
+    kv_row = 2 * n_kv * B * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    kv = lambda a, b: sum(kv_row * (p + 1) + state  # noqa: E731
+                          for p in range(a, b))
     src = ManualSource()
     src.set(f"{tenant}/prefill", accesses={
         f"{tenant}/params": P * wbytes / line,
@@ -581,10 +846,18 @@ def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
     return _device_profile(run, steps, wall_ms)
 
 
-def phase_serve() -> dict:
-    """Full-width gemma-2b, bf16, batch 4, three requests of 128 + 32
+def _free() -> None:
+    """Release what an earlier phase left, and reset the peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_serve(arch: str, name: str) -> dict:
+    """A full-width model, bf16, batch 4, three requests of 128 + 32
     tokens under the runtime; the third repeats the first."""
-    cfg = get_config("gemma-2b")
+    _free()
+    cfg = get_config(arch)
     B, P, n_new, S = 4, 128, 32, 1024
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -608,9 +881,7 @@ def phase_serve() -> dict:
         secs.append(time.perf_counter() - t)
     launches = ops.launch_counts()       # ... and ends here
     steps = 3 * (P + n_new)
-    expect = {"decode_attention": cfg.n_layers * steps,
-              "tiered_matmul": 7 * cfg.n_layers * steps,
-              "flash_attention": 0, "flash_attention_bwd": 0}
+    expect = _expected_launches(cfg, "serve", steps)
     peak = torch.cuda.max_memory_allocated()
     logits = lm.decode_step(params, cfg, lm.init_cache(cfg, B, S),
                             outs[0][:, 0].cuda(), 0)
@@ -619,7 +890,7 @@ def phase_serve() -> dict:
                        | {o for r in plan.residents for o in r}) if plan else []
     wall_ms = [1e3 * s / (P + n_new) for s in secs]
     res = dict(
-        phase="serve", arch=cfg.name, dtype="bfloat16",
+        phase=name, arch=cfg.name, dtype="bfloat16",
         n_params=cfg.n_params(), layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, batch=B, prompt=P, new=n_new, max_seq=S,
         requests=3, init_s=init_s, request_s=secs, ms_per_step=wall_ms,
@@ -646,19 +917,18 @@ def phase_serve() -> dict:
     return res
 
 
-def phase_train() -> dict:
-    """Full-width gemma-2b, bf16 parameters from a seeded generator,
-    AdamW (fp32 master and moments, lr 3e-4), per-layer remat, batch 2 x
-    2048 tokens from the ported pipeline, 5 steps through
-    ``train/loop.py`` under ``UnimemRuntime(H100_HBM_HOST)``."""
-    cfg = get_config("gemma-2b")
-    B, S, steps = 2, 2048, 5
+def phase_train(arch: str, S: int, name: str) -> dict:
+    """A full-width model, bf16 parameters from a seeded generator, AdamW
+    (fp32 master and moments, lr 3e-4), per-layer remat, batch 2 x S
+    tokens from the ported pipeline, 5 steps through ``train/loop.py``
+    under ``UnimemRuntime(H100_HBM_HOST)``."""
+    cfg = get_config(arch)
+    B, steps = 2, 5
     tcfg = TrainConfig(steps=steps, global_batch=B, seq_len=S, lr=3e-4,
                        remat=True, log_every=1, seed=0,
                        machine=H100_HBM_HOST, device="cuda")
     opt = AdamWConfig(lr=3e-4)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free()
     ops.reset_launch_counts()            # the main path starts here
     t0 = time.perf_counter()
     res = train(cfg, tcfg, opt)
@@ -672,12 +942,10 @@ def phase_train() -> dict:
     # a chunk of a registered object counts for its parent
     planned = sorted({rt.registry[n].parent or n if n in rt.registry else n
                       for n in names})
-    expect = {"flash_attention": 2 * cfg.n_layers * steps,
-              "flash_attention_bwd": cfg.n_layers * steps,
-              "tiered_matmul": 0, "decode_attention": 0}
+    expect = _expected_launches(cfg, "train", steps)
     ms = [1e3 * t for t in res.step_times]
     res_row = dict(
-        phase="train", arch=cfg.name, dtype="bfloat16",
+        phase=name, arch=cfg.name, dtype="bfloat16",
         n_params=cfg.n_params(), layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, batch=B, seq_len=S, steps=steps, remat=True,
         optimizer=dict(lr=opt.lr, master_fp32=opt.master_fp32,
@@ -693,7 +961,9 @@ def phase_train() -> dict:
                      strategy=plan.strategy if plan else None,
                      stats=res.runtime_stats))
     del res, rt, plan
+    _free()
     res_row["profile"] = _train_profile(cfg, tcfg, opt, min(ms[1:]))
+    res_row["profile"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     print(json.dumps(res_row, default=str), flush=True)
     losses = res_row["losses"]
     require(all(math.isfinite(x) for x in losses), "every loss finite")
@@ -713,6 +983,8 @@ TRAIN_GROUPS = {
     "flash_attention": ["flash_fwd_kernel"],
     "flash_attention_bwd": ["dkdv_kernel", "dq_kernel", "delta_kernel",
                             "split_sum_kernel"],
+    "ssd_scan": ["ssd_fwd_kernel"],
+    "ssd_scan_bwd": ["ssd_bwd_kernel"],
     "cublas_products": ["nvjet", "gemm", "cutlass", "sm90_xmma"],
 }
 
@@ -752,46 +1024,66 @@ def _train_profile(cfg, tcfg, opt, wall_ms: float) -> dict:
     return prof
 
 
-def kernel_line(checks, serve, train_row) -> dict:
+def kernel_line(checks, paths) -> dict:
     """Each kernel's numbers at its path's shapes: decode attention one
     bf16 call at batch 4, length 160 over the (4, 1024, 1, 256) cache view;
-    tiered_matmul one layer's 7 bf16 products at M = 4, summed; flash
-    attention forward and backward one bf16 call at the training shape.
-    Launches are counted on each kernel's own path (serve or train)."""
+    tiered_matmul one gemma-2b layer's 7 bf16 products at M = 4, summed;
+    flash attention forward and backward one bf16 call at the gemma-2b
+    training shape; the SSD scan and its gradient one fp32 call at the
+    zamba2 training shape.  Launches are the sum over the main paths
+    (``paths``: the serve and train rows of both models), each counted from
+    0 just before its path ran; ``launches_by_path`` splits them."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
-                and r["dtype"] == "bfloat16" and cond(r["shape"])]
+                and cond(r["dtype"], r["shape"])]
 
-    def train_shape(s):
-        return (s["B"], s["K"], s["G"], s["S"], s["T"], s["D"]) == TRAIN_SHAPE
+    def flash_train(dt, s):
+        return dt == "bfloat16" and (s["B"], s["K"], s["G"], s["S"], s["T"],
+                                     s["D"]) == TRAIN_SHAPE
 
-    flash_covers = ("one bf16 call at the training shape q (2,1,8,2048,256), "
-                    "k/v (2,1,2048,256), causal")
+    def ssd_train(dt, s):
+        return (s["B"], s["H"], s["S"], s["N"], s["P"],
+                s["chunk"]) == SSD_TRAIN_SHAPE and s["decay"] == "near1"
+
+    gemma = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+    flash_covers = ("one bf16 call at the gemma-2b training shape q "
+                    "(2,1,8,2048,256), k/v (2,1,2048,256), causal")
+    ssd_covers = ("one fp32 call at the zamba2-1.2b training shape: B 2, "
+                  "H 64, S 4096, N = P = 64, chunk 256, k/q broadcast over "
+                  "H, decays near 1")
     out = []
-    for name, rows, covers, path in (
+    for name, rows, covers in (
             ("decode_attention",
-             pick("decode_attention",
-                  lambda s: s["cache_view"] and s["length"] == 160),
-             "one bf16 call, batch 4, length 160, cache view (4,1024,1,256)",
-             serve),
+             pick("decode_attention", lambda dt, s: dt == "bfloat16"
+                  and s["cache_view"] and s["length"] == 160
+                  and s["D"] == 256),
+             "one bf16 call, batch 4, length 160, cache view (4,1024,1,256)"),
             ("tiered_matmul",
-             pick("tiered_matmul", lambda s: s["product"] is not None),
-             "one layer's 7 bf16 products at M=4, summed", serve),
-            ("flash_attention", pick("flash_attention", train_shape),
-             flash_covers, train_row),
-            ("flash_attention_bwd", pick("flash_attention_bwd", train_shape),
-             flash_covers, train_row)):
+             pick("tiered_matmul", lambda dt, s: dt == "bfloat16"
+                  and s["product"] in gemma),
+             "one gemma-2b layer's 7 bf16 products at M=4, summed"),
+            ("flash_attention", pick("flash_attention", flash_train),
+             flash_covers),
+            ("flash_attention_bwd", pick("flash_attention_bwd", flash_train),
+             flash_covers),
+            ("ssd_scan", pick("ssd_scan", ssd_train), ssd_covers),
+            ("ssd_scan_bwd", pick("ssd_scan_bwd", ssd_train), ssd_covers)):
         src, replaces = KERNELS[name]
         mine = [r for r in checks if r["kernel"] == name]
+        by_path = {p["phase"]: p["launches"][name] for p in paths}
         row = dict(name=name, route="cuda", source=src, replaces=replaces,
-                   launches=path["launches"][name],
+                   launches=sum(by_path.values()), launches_by_path=by_path,
                    max_abs_err=max(r["max_abs_err"] for r in rows),
                    checks=len(mine), checks_ok=sum(r["ok"] for r in mine))
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "bound_ms"):
             row[key] = sum(r[key] for r in rows)
+        libs = [r["library_ms"] for r in rows]
+        row["library_ms"] = None if None in libs else sum(libs)
+        if row["library_ms"] is None:
+            row["library"] = "none: no single PyTorch call computes it"
         row["bound_by"] = rows[0]["bound_by"]
         row["covers"] = covers
-        row["path"] = path["phase"]
+        row["path"] = [p for p, n in by_path.items() if n]
         out.append(row)
     return {"kernels": out}
 
@@ -807,10 +1099,13 @@ def main() -> int:
     timer = Timer()
     checks = phase_check(timer)
     phase_runtime(timer)
-    phase_parity()
-    serve = phase_serve()
-    train_row = phase_train()
-    line = kernel_line(checks, serve, train_row)
+    phase_parity("gemma-2b")
+    phase_parity("zamba2-1.2b")
+    paths = [phase_serve("gemma-2b", "serve"),
+             phase_train("gemma-2b", 2048, "train"),
+             phase_serve("zamba2-1.2b", "serve_zamba2"),
+             phase_train("zamba2-1.2b", 4096, "train_zamba2")]
+    line = kernel_line(checks, paths)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

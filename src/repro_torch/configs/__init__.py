@@ -1,18 +1,20 @@
 """Architecture config registry.
 
-Only gemma-2b is ported so far; the reference package's other nine
-architectures are queued in ROADMAP.md (queue 1: "The other nine configs
-and the moe family")."""
+Ported so far: gemma-2b and zamba2-1.2b; the reference package's other
+eight architectures are queued in ROADMAP.md (queue 1: "The other eight
+configs and the moe family")."""
 
 from typing import Dict, List
 
 from .base import ArchConfig, ShapeConfig, SHAPES
 from .gemma_2b import CONFIG as GEMMA_2B
+from .zamba2_1p2b import CONFIG as ZAMBA2_1P2B
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [GEMMA_2B]}
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [GEMMA_2B, ZAMBA2_1P2B]}
 
 # short aliases for --arch flags
-ALIASES = {"gemma-2b": "gemma-2b", "gemma": "gemma-2b"}
+ALIASES = {"gemma-2b": "gemma-2b", "gemma": "gemma-2b",
+           "zamba2-1.2b": "zamba2-1.2b", "zamba2": "zamba2-1.2b"}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,0 +1,318 @@
+// Gradient of the SSD chunked scan (csrc/ssd_scan.cu), for sm_90a: da, dk,
+// dv, dq and d(initial state) from a, k, v, q, dy, the chunk-entry states
+// the forward saved (not recomputed), its final state and d(final state).
+//
+// The TPU kernel it mirrors, src/repro/kernels/ssd_scan.py (`_ssd_kernel`),
+// has no backward kernel: the JAX package differentiates its pure-JAX twin
+// (`models/mamba2.py`, `chunked_linear_scan`) by autodiff.  So this kernel
+// is held against the gradient of the plain version.
+//
+// Per chunk, in reverse, with M_ij = e^{cum_i - cum_j} (i >= j, else 0),
+// w_j = e^{cum_L - cum_j}, S the chunk's entry state and dS the gradient of
+// its exit state:
+//   dq_i = sum_j M_ij (dy_i . v_j) k_j + e^{cum_i} S dy_i
+//   dk_j = sum_i M_ij (dy_i . v_j) q_i + w_j dS v_j
+//   dv_j = sum_i M_ij (q_i . k_j) dy_i + w_j dS^T k_j
+//   dcum_i = q_i . dq_i - k_i . dk_i  (+ <dS, S_exit> at the last position)
+//   dlog a = reverse cumsum of dcum;  da = dlog a / a where a > 1e-37, else 0
+//   dS <- e^{cum_L} dS + sum_i e^{cum_i} q_i dy_i^T
+//
+// What bounds it on this card: operations, about 2.3x the forward's:
+// B*H*S*(Q*(2P + 3N) + 8*N*P) useful flops, 60.1 GFLOP at the zamba2
+// training shape, 0.90 ms at the fp32 FMA rate.
+//
+// What the design does about it:
+// * One block per (b, h), P <= 64 and N <= 64: every sum over P (dy . v,
+//   S dy, dS v) and over N stays inside the block, so dq, dk, da and the
+//   scalar <dS, S_exit> need no reduction across blocks and no atomics; the
+//   result is the same bits on every run.  128 blocks at the training
+//   shape.
+// * Two passes per chunk over 64 x 64 sub-tiles, each skipping the tiles
+//   above the diagonal: a row pass (dq, and dS's update) and a column pass
+//   (dk, dv).  Each recomputes the masked products it needs from tiles
+//   re-read from L2; only dS, its update and one output tile per pass live
+//   in registers.
+// * k and q may be broadcast over H (stride 0): each head writes its own dk
+//   and dq into (B, H, S, N) outputs, and autograd sums them over H.
+// * fp32 FFMA throughout, as in the forward.
+// Simple first: no tensor cores, no TMA.
+
+#include "ssd_tiles.cuh"
+
+namespace {
+
+using namespace ssd;
+
+struct BwdArgs {
+  const float* a; const float* k; const float* v; const float* q;
+  const float* dy;
+  const float* states;     // (B, H, nc, N, P): each chunk's entry state
+  const float* final_state;
+  const float* dfinal;     // (B, H, N, P), or null for zeros
+  float* da; float* dk; float* dv; float* dq;   // contiguous (B, H, S, .)
+  float* dinit;            // (B, H, N, P), or null
+  View va, vk, vv, vq, vdy;
+  int H, S, N, P, Q, nc;
+};
+
+constexpr int kSmemBytes = 4 * (8 * kT * kLd + 5 * kMaxQ + 8);
+
+__global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qi = smem;                  // row tile of q (then q * e^{cum})
+  float* dyi = qi + kT * kLd;        // row tile of dy
+  float* kj = dyi + kT * kLd;        // column tile of k
+  float* vj = kj + kT * kLd;         // column tile of v
+  float* dm = vj + kT * kLd;         // M o (dy v^T)
+  float* sm = dm + kT * kLd;         // M o (q k^T)
+  float* sp = sm + kT * kLd;         // entry state (N x P)
+  float* dss = sp + kT * kLd;        // dS (N x P)
+  float* cum = dss + kT * kLd;       // kMaxQ each:
+  float* ecum = cum + kMaxQ;         //   e^{cum_i}
+  float* wdec = ecum + kMaxQ;        //   e^{cum_L - cum_j}
+  float* qdq = wdec + kMaxQ;         //   q_i . dq_i
+  float* kdk = qdq + kMaxQ;          //   k_j . dk_j
+  float* scratch = kdk + kMaxQ;      // 8
+
+  const int tid = threadIdx.x, tx = tid & 15;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const float* A = a.a + b * a.va.b + h * a.va.h;
+  const float* K = a.k + b * a.vk.b + h * a.vk.h;
+  const float* V = a.v + b * a.vv.b + h * a.vv.h;
+  const float* Qm = a.q + b * a.vq.b + h * a.vq.h;
+  const float* DY = a.dy + b * a.vdy.b + h * a.vdy.h;
+  const long long S = a.S, NP = (long long)a.N * a.P;
+  float* DA = a.da + bh * S;
+  float* DK = a.dk + bh * S * a.N;
+  float* DQ = a.dq + bh * S * a.N;
+  float* DV = a.dv + bh * S * a.P;
+
+  // dS: this thread's dS[n = row_of(i)][p = col_of(j)]
+  float ds[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = row_of(i), p = col_of(j);
+      ds[i][j] = (a.dfinal != nullptr && n < a.N && p < a.P)
+                 ? a.dfinal[bh * NP + (long long)n * a.P + p] : 0.f;
+    }
+
+  for (int c = a.nc - 1; c >= 0; --c) {
+    const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
+    const int n_tiles = (Qc + kT - 1) / kT;
+    const float cs = block_scan(log_decay(A + s0 * a.va.s, a.va.s, tid, Qc),
+                                scratch);
+    cum[tid] = cs;
+    const float* s_prev = a.states + (bh * (long long)a.nc + c) * NP;
+    const float* s_exit = c + 1 < a.nc
+        ? a.states + (bh * (long long)a.nc + c + 1) * NP
+        : a.final_state + bh * NP;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = row_of(i), p = col_of(j);
+        dss[n * kLd + p] = ds[i][j];
+        if (n < a.N && p < a.P)
+          part = fmaf(ds[i][j], s_exit[(long long)n * a.P + p], part);
+      }
+    load_rows(sp, s_prev, a.P, kT, a.N, a.P);
+    const float ds_exit = block_sum(part, scratch);   // <dS, S_exit>
+    const float cL = cum[Qc - 1];
+    if (tid < Qc) {
+      ecum[tid] = expf(cum[tid]);
+      wdec[tid] = expf(cL - cum[tid]);
+    }
+    __syncthreads();
+
+    // ---- row pass: dq, q . dq, and dS's update sum_i e^{cum_i} q_i dy_i^T
+    float dsu[4][4];
+    zero(dsu);
+    for (int I = 0; I < n_tiles; ++I) {
+      const int rows = min(kT, Qc - I * kT);
+      load_rows(qi, Qm + (s0 + I * kT) * a.vq.s, a.vq.s, kT, rows, a.N);
+      load_rows(dyi, DY + (s0 + I * kT) * a.vdy.s, a.vdy.s, kT, rows, a.P);
+      float acc[4][4];
+      zero(acc);
+      for (int J = 0; J <= I; ++J) {
+        load_rows(kj, K + (s0 + J * kT) * a.vk.s, a.vk.s, kT,
+                  min(kT, Qc - J * kT), a.N);
+        load_rows(vj, V + (s0 + J * kT) * a.vv.s, a.vv.s, kT,
+                  min(kT, Qc - J * kT), a.P);
+        __syncthreads();
+        float d[4][4];
+        zero(d);
+        mm_nt(d, dyi, vj, kT);                         // dy_I v_J^T over p
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = I * kT + row_of(i), col = J * kT + col_of(j);
+            dm[row_of(i) * kLd + col_of(j)] =
+                (col <= r && r < Qc) ? d[i][j] * expf(cum[r] - cum[col]) : 0.f;
+          }
+        __syncthreads();
+        mm_nn(acc, dm, kj, kT);                         // (M o D) @ k_J
+        __syncthreads();
+      }
+      float t[4][4];
+      zero(t);
+      mm_nt(t, dyi, sp, kT);                            // dy_I S^T over p
+      float qd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = I * kT + row_of(i);
+        if (r >= Qc) continue;
+        const float e = ecum[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = col_of(j);
+          const float g = fmaf(e, t[i][j], acc[i][j]);
+          if (n < a.N) {
+            DQ[(s0 + r) * (long long)a.N + n] = g;
+            qd[i] = fmaf(qi[row_of(i) * kLd + n], g, qd[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float s = sum16(qd[i]);
+        if (tx == 0) qdq[I * kT + row_of(i)] = s;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < rows * kT; idx += kThreads)
+        qi[(idx >> 6) * kLd + (idx & 63)] *= ecum[I * kT + (idx >> 6)];
+      __syncthreads();
+      mm_tn(dsu, qi, dyi, rows);                        // (q e^cum)^T dy
+      __syncthreads();
+    }
+
+    // ---- column pass: dk, dv and k . dk
+    for (int J = 0; J < n_tiles; ++J) {
+      const int cols = min(kT, Qc - J * kT);
+      load_rows(kj, K + (s0 + J * kT) * a.vk.s, a.vk.s, kT, cols, a.N);
+      load_rows(vj, V + (s0 + J * kT) * a.vv.s, a.vv.s, kT, cols, a.P);
+      float gk[4][4], gv[4][4];
+      zero(gk);
+      zero(gv);
+      for (int I = J; I < n_tiles; ++I) {
+        const int rows = min(kT, Qc - I * kT);
+        load_rows(qi, Qm + (s0 + I * kT) * a.vq.s, a.vq.s, kT, rows, a.N);
+        load_rows(dyi, DY + (s0 + I * kT) * a.vdy.s, a.vdy.s, kT, rows, a.P);
+        __syncthreads();
+        float d[4][4], s[4][4];
+        zero(d);
+        zero(s);
+        mm_nt(d, dyi, vj, kT);                         // dy_I v_J^T
+        mm_nt(s, qi, kj, kT);                          // q_I k_J^T
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = I * kT + row_of(i), col = J * kT + col_of(j);
+            const float m = (col <= r && r < Qc) ? expf(cum[r] - cum[col])
+                                                 : 0.f;
+            dm[row_of(i) * kLd + col_of(j)] = d[i][j] * m;
+            sm[row_of(i) * kLd + col_of(j)] = s[i][j] * m;
+          }
+        __syncthreads();
+        mm_tn(gk, dm, qi, kT);                          // (M o D)^T q_I
+        mm_tn(gv, sm, dyi, kT);                         // (M o Sc)^T dy_I
+        __syncthreads();
+      }
+      float tk[4][4], tv[4][4];
+      zero(tk);
+      zero(tv);
+      mm_nt(tk, vj, dss, kT);                           // v_J dS^T over p
+      mm_nn(tv, kj, dss, kT);                           // k_J dS over n
+      float kd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = J * kT + row_of(i);
+        if (r >= Qc) continue;
+        const float w = wdec[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = col_of(j);
+          const float g = fmaf(w, tk[i][j], gk[i][j]);
+          if (col < a.N) {
+            DK[(s0 + r) * (long long)a.N + col] = g;
+            kd[i] = fmaf(kj[row_of(i) * kLd + col], g, kd[i]);
+          }
+          if (col < a.P)
+            DV[(s0 + r) * (long long)a.P + col] = fmaf(w, tv[i][j], gv[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float s = sum16(kd[i]);
+        if (tx == 0) kdk[J * kT + row_of(i)] = s;
+      }
+      __syncthreads();
+    }
+
+    // ---- dlog a = reverse cumsum of dcum; da = dlog a / a
+    const int idx = Qc - 1 - tid;
+    float dcum = 0.f;
+    if (idx >= 0)
+      dcum = qdq[idx] - kdk[idx] + (idx == Qc - 1 ? ds_exit : 0.f);
+    const float dla = block_scan(dcum, scratch);
+    if (idx >= 0) {
+      const float av = A[(s0 + idx) * a.va.s];
+      DA[s0 + idx] = av > kMinA ? dla / av : 0.f;
+    }
+    const float dec = expf(cL);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ds[i][j] = fmaf(dec, ds[i][j], dsu[i][j]);
+    __syncthreads();
+  }
+
+  if (a.dinit != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = row_of(i), p = col_of(j);
+        if (n < a.N && p < a.P)
+          a.dinit[bh * NP + (long long)n * a.P + p] = ds[i][j];
+      }
+  }
+}
+
+}  // namespace
+
+// Strides as in ssd_scan_fwd_launch, for a, k, v, q and dy; states
+// (B,H,nc,N,P), final and dfinal (B,H,N,P) and the outputs da (B,H,S),
+// dk, dq (B,H,S,N), dv (B,H,S,P) and dinit (B,H,N,P) contiguous.  N, P <=
+// 64, 1 <= Q <= 256.  dfinal and dinit may be null.  Returns a CUDA error
+// code (0 on success).
+extern "C" int ssd_scan_bwd_launch(
+    const float* a, const float* k, const float* v, const float* q,
+    const float* dy, const float* states, const float* final_state,
+    const float* dfinal, float* da, float* dk, float* dv, float* dq,
+    float* dinit,
+    long long ab, long long ah, long long as,
+    long long kb, long long kh, long long ks,
+    long long vb, long long vh, long long vs,
+    long long qb, long long qh, long long qs,
+    long long yb, long long yh, long long ys,
+    int B, int H, int S, int N, int P, int Q, void* stream) {
+  if (B < 1 || H < 1 || S < 1 || N < 1 || N > kT || P < 1 || P > kT
+      || Q < 1 || Q > kMaxQ)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs args{a, k, v, q, dy, states, final_state, dfinal, da, dk, dv, dq,
+               dinit, {ab, ah, as}, {kb, kh, ks}, {vb, vh, vs},
+               {qb, qh, qs}, {yb, yh, ys}, H, S, N, P, Q, (S + Q - 1) / Q};
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_kernel<<<B * H, kThreads, kSmemBytes,
+                   static_cast<cudaStream_t>(stream)>>>(args);
+  return (int)cudaGetLastError();
+}

@@ -12,17 +12,21 @@ from typing import Dict
 
 from . import decode_attention as _da
 from . import flash_attention as _fa
+from . import ssd_scan as _ssd
 from . import tiered_matmul as _mm
 
 decode_attention = _da.decode_attention
 tiered_matmul = _mm.tiered_matmul
 flash_attention = _fa.flash_attention
+ssd_scan = _ssd.ssd_scan
 
 #: counter name -> (module, attribute holding its launches)
 _COUNTERS = {"decode_attention": (_da, "launches"),
              "tiered_matmul": (_mm, "launches"),
              "flash_attention": (_fa, "launches"),
-             "flash_attention_bwd": (_fa, "bwd_launches")}
+             "flash_attention_bwd": (_fa, "bwd_launches"),
+             "ssd_scan": (_ssd, "launches"),
+             "ssd_scan_bwd": (_ssd, "bwd_launches")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -47,3 +47,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgst,bktd->bkgsd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q: torch.Tensor) -> torch.Tensor:
+    """Step-by-step SSD recurrence in fp32.  a: (B, H, S); k, q:
+    (B, H, S, N); v: (B, H, S, P) -> y (B, H, S, P) in v's dtype."""
+    B, H, S = a.shape
+    state = torch.zeros((B, H, k.shape[-1], v.shape[-1]),
+                        dtype=torch.float32, device=a.device)
+    ys = []
+    for t in range(S):
+        state = state * a[:, :, t, None, None].float() + torch.einsum(
+            "bhn,bhp->bhnp", k[:, :, t].float(), v[:, :, t].float())
+        ys.append(torch.einsum("bhnp,bhn->bhp", state, q[:, :, t].float()))
+    return torch.stack(ys, dim=2).to(v.dtype)

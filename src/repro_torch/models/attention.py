@@ -12,7 +12,7 @@ its cache is updated in place.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -22,21 +22,22 @@ from .common import apply_rope, dense_init
 
 
 def init_attn_params(generator: torch.Generator, cfg: ArchConfig,
-                     n_layers: int, dtype=torch.bfloat16
+                     n_layers: Optional[int], dtype=torch.bfloat16
                      ) -> Dict[str, torch.Tensor]:
-    """Stacked over a leading layer axis of ``n_layers``."""
+    """Stacked over a leading layer axis of ``n_layers``, or one unstacked
+    block with ``n_layers=None`` (zamba2's shared block)."""
     d, H, K, Dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                    cfg.resolved_head_dim)
-    L = n_layers
+    L = () if n_layers is None else (n_layers,)
     p = {
-        "wq": dense_init(generator, (L, d, H * Dh), dtype),
-        "wk": dense_init(generator, (L, d, K * Dh), dtype),
-        "wv": dense_init(generator, (L, d, K * Dh), dtype),
-        "wo": dense_init(generator, (L, H * Dh, d), dtype),
+        "wq": dense_init(generator, (*L, d, H * Dh), dtype),
+        "wk": dense_init(generator, (*L, d, K * Dh), dtype),
+        "wv": dense_init(generator, (*L, d, K * Dh), dtype),
+        "wo": dense_init(generator, (*L, H * Dh, d), dtype),
     }
     if cfg.attn_bias:
         for name, width in (("bq", H * Dh), ("bk", K * Dh), ("bv", K * Dh)):
-            p[name] = torch.zeros((L, width), dtype=dtype,
+            p[name] = torch.zeros((*L, width), dtype=dtype,
                                   device=generator.device)
     return p
 

@@ -1,5 +1,10 @@
-"""Language model assembly, ``attn`` block pattern (embed -> blocks ->
-norm -> tied or untied head), for training and greedy decode.
+"""Language model assembly (embed -> blocks -> norm -> tied or untied
+head), for training and greedy decode.  Two block patterns are ported:
+
+* ``attn``              -- dense transformers (gemma-2b);
+* ``mamba_shared_attn`` -- zamba2: a Mamba-2 backbone with one *shared*
+                          attention block (its own KV cache per
+                          application) before every ``attn_every`` layers.
 
 Functional API, as in the reference package's ``models/lm.py``:
   init_params(cfg, generator, device, dtype)   -> params dict
@@ -11,8 +16,8 @@ Functional API, as in the reference package's ``models/lm.py``:
 Parameters keep the reference's keys, shapes and stacked layer axis, so
 the runtime records the same leaf spans for them in both packages.  The
 reference scans over layers; here a Python loop walks per-layer views of
-the stacked tensors.  The ``mamba_shared_attn`` and ``xlstm`` patterns
-are queued in ROADMAP.md.
+the stacked tensors.  The ``xlstm`` pattern and the MoE family are queued
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -24,18 +29,36 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import _tree
 from ..configs.base import ArchConfig
-from . import attention, mlp as mlp_mod
+from . import attention, mamba2, mlp as mlp_mod
 from .common import (dense_init, embed_init, rms_norm, rope_at,
                      rope_frequencies)
 
 
-def _require_attn(cfg: ArchConfig) -> None:
-    if cfg.block_pattern != "attn" or cfg.is_moe or cfg.norm != "rms":
+def _require_ported(cfg: ArchConfig) -> None:
+    if (cfg.block_pattern not in ("attn", "mamba_shared_attn")
+            or cfg.is_moe or cfg.norm != "rms"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense 'attn' pattern with rms norm is "
-            "ported (ROADMAP.md, queue 1: 'The ssd_scan kernel, with mamba2, "
-            "zamba2 and xlstm' and 'The other nine configs and the moe "
-            "family')")
+            f"{cfg.name}: only the dense 'attn' and the 'mamba_shared_attn' "
+            "patterns with rms norm are ported (ROADMAP.md, queue 1: "
+            "'xlstm through the ssd_scan kernel' and 'The other eight configs "
+            "and the moe family')")
+
+
+def _init_block(generator, cfg: ArchConfig, n_layers, dtype):
+    """An attention block: stacked over ``n_layers``, or one unstacked
+    block (``n_layers=None``, zamba2's shared block)."""
+    L = () if n_layers is None else (n_layers,)
+    block: Dict[str, Any] = {
+        "attn": attention.init_attn_params(generator, cfg, n_layers, dtype),
+        "ln1_scale": torch.zeros((*L, cfg.d_model), dtype=dtype,
+                                 device=generator.device),
+        "ln2_scale": torch.zeros((*L, cfg.d_model), dtype=dtype,
+                                 device=generator.device),
+    }
+    if cfg.d_ff:
+        block["mlp"] = mlp_mod.init_mlp_params(generator, cfg, n_layers,
+                                               dtype)
+    return block
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -43,24 +66,23 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters drawn from ``generator`` (on its own device) and
     placed on ``device``.  Same keys and shapes as the reference package;
     not the same numbers (its draws come from ``jax.random``)."""
-    _require_attn(cfg)
+    _require_ported(cfg)
     L, d = cfg.n_layers, cfg.d_model
-    zeros = lambda *shape: torch.zeros(shape, dtype=dtype,   # noqa: E731
-                                       device=generator.device)
     params: Dict[str, Any] = {
         "embed": embed_init(generator, (cfg.vocab_size, d), dtype),
-        "final_ln_scale": zeros(d),
+        "final_ln_scale": torch.zeros(d, dtype=dtype,
+                                      device=generator.device),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (d, cfg.vocab_size), dtype)
-    blocks: Dict[str, Any] = {
-        "attn": attention.init_attn_params(generator, cfg, L, dtype),
-        "ln1_scale": zeros(L, d),
-        "ln2_scale": zeros(L, d),
-    }
-    if cfg.d_ff:
-        blocks["mlp"] = mlp_mod.init_mlp_params(generator, cfg, L, dtype)
-    params["blocks"] = blocks
+    if cfg.block_pattern == "attn":
+        params["blocks"] = _init_block(generator, cfg, L, dtype)
+    else:
+        blocks = mamba2.init_mamba2_params(generator, cfg, L, dtype)
+        blocks["ln1_scale"] = torch.zeros((L, d), dtype=dtype,
+                                          device=generator.device)
+        params["mamba_blocks"] = blocks
+        params["shared_attn"] = _init_block(generator, cfg, None, dtype)
     return _to(params, torch.device(device))
 
 
@@ -70,14 +92,31 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _n_apps(cfg: ArchConfig) -> int:
+    """Applications of zamba2's shared block: one before each group of at
+    most ``attn_every`` Mamba-2 layers."""
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
-               kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """(n_layers, batch, max_seq, K, Dh) keys and values, zeroed."""
-    _require_attn(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-            "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+               kv_dtype=torch.bfloat16) -> Dict[str, Any]:
+    """``attn``: (n_layers, batch, max_seq, K, Dh) keys and values.
+    ``mamba_shared_attn``: keys and values per shared-block application,
+    and per layer the fp32 SSM state (n_layers, batch, H, N, P) and the
+    conv window (n_layers, batch, K - 1, C) in bf16.  All zeroed."""
+    _require_ported(cfg)
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.block_pattern == "attn":
+        n_kv, cache = cfg.n_layers, {}
+    else:
+        n_kv = _n_apps(cfg)
+        one = mamba2.init_mamba2_cache(cfg, batch, device)
+        cache = {"mamba": {k: torch.zeros((cfg.n_layers, *t.shape),
+                                          dtype=t.dtype, device=device)
+                           for k, t in one.items()}}
+    cache["k"] = torch.zeros((n_kv, *kv), dtype=kv_dtype, device=device)
+    cache["v"] = torch.zeros((n_kv, *kv), dtype=kv_dtype, device=device)
+    return cache
 
 
 def _unstack(tree, n: int) -> List[Any]:
@@ -98,14 +137,25 @@ def _block_fwd(blk, x, cos, sin, cfg: ArchConfig) -> torch.Tensor:
     return x
 
 
+def _mamba_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
+    return x + mamba2.mamba2_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
+
+
+def _apply(fn, remat: bool, *args):
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S).  Returns (logits (B, S, V) in the parameters' dtype,
-    aux loss = 0 for the dense pattern).  ``remat`` recomputes each layer
-    in the backward pass and keeps only its input, as the reference's
+    aux loss = 0 for both ported patterns).  ``remat`` recomputes each
+    layer (and each application of zamba2's shared block) in the backward
+    pass and keeps only its input, as the reference's
     ``jax.checkpoint(nothing_saveable)`` over the layer scan."""
-    _require_attn(cfg)
+    _require_ported(cfg)
     if frontend_embeds is not None:
         raise NotImplementedError("frontend embeddings are not ported (no "
                                   "ported config has a frontend)")
@@ -114,16 +164,26 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
     rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
     cos, sin = rope_frequencies(cfg.resolved_head_dim, S, cfg.rope_theta,
                                 rotary_dim=rd, device=x.device)
-    for blk in _unstack(params["blocks"], cfg.n_layers):
-        if remat:
-            x = checkpoint(_block_fwd, blk, x, cos, sin, cfg,
-                           use_reentrant=False)
-        else:
-            x = _block_fwd(blk, x, cos, sin, cfg)
+    if cfg.block_pattern == "attn":
+        for blk in _unstack(params["blocks"], cfg.n_layers):
+            x = _apply(_block_fwd, remat, blk, x, cos, sin, cfg)
+    else:
+        x = _hybrid_forward(params, cfg, x, cos, sin, remat)
     x = rms_norm(x, params["final_ln_scale"])
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return torch.matmul(x, head), torch.zeros((), dtype=torch.float32,
                                               device=x.device)
+
+
+def _hybrid_forward(params, cfg: ArchConfig, x, cos, sin, remat: bool):
+    """zamba2: the shared block before each group of ``attn_every``
+    Mamba-2 layers (38 layers: 7 applications)."""
+    blocks = _unstack(params["mamba_blocks"], cfg.n_layers)
+    for g in range(0, cfg.n_layers, cfg.attn_every):
+        x = _apply(_block_fwd, remat, params["shared_attn"], x, cos, sin, cfg)
+        for blk in blocks[g:g + cfg.attn_every]:
+            x = _apply(_mamba_fwd, remat, blk, x, cfg)
+    return x
 
 
 def loss_fn(params: Dict[str, Any], cfg: ArchConfig,
@@ -140,22 +200,45 @@ def loss_fn(params: Dict[str, Any], cfg: ArchConfig,
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
+def _block_decode(blk, x, ck, cv, pos, cos, sin, cfg: ArchConfig):
+    h = rms_norm(x, blk["ln1_scale"])
+    x = x + attention.attn_decode(blk["attn"], h, ck, cv, pos, cos, sin, cfg)
+    if cfg.d_ff:
+        h = rms_norm(x, blk["ln2_scale"])
+        x = x + mlp_mod.mlp_decode(blk["mlp"], h, cfg)
+    return x
+
+
 def decode_step(params: Dict[str, Any], cfg: ArchConfig,
-                cache: Dict[str, torch.Tensor], token: torch.Tensor,
+                cache: Dict[str, Any], token: torch.Tensor,
                 pos: int) -> torch.Tensor:
     """token: (B,) int; pos: the token's position.  Writes the token's keys
-    and values into ``cache`` in place and returns logits (B, V)."""
-    _require_attn(cfg)
+    and values (and, for zamba2, each layer's SSM state and conv window)
+    into ``cache`` in place and returns logits (B, V)."""
+    _require_ported(cfg)
     x = params["embed"][token]                               # (B, d)
     rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
     cos, sin = rope_at(pos, rd, cfg.rope_theta, x.device)
-    for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        h = rms_norm(x, blk["ln1_scale"])
-        x = x + attention.attn_decode(blk["attn"], h, cache["k"][i],
-                                      cache["v"][i], pos, cos, sin, cfg)
-        if cfg.d_ff:
-            h = rms_norm(x, blk["ln2_scale"])
-            x = x + mlp_mod.mlp_decode(blk["mlp"], h, cfg)
+    if cfg.block_pattern == "attn":
+        for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            x = _block_decode(blk, x, cache["k"][i], cache["v"][i], pos,
+                              cos, sin, cfg)
+    else:
+        x = _hybrid_decode(params, cfg, cache, x, pos, cos, sin)
     x = rms_norm(x, params["final_ln_scale"])
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head
+
+
+def _hybrid_decode(params, cfg: ArchConfig, cache, x, pos, cos, sin):
+    blocks = _unstack(params["mamba_blocks"], cfg.n_layers)
+    ssm, conv = cache["mamba"]["ssm"], cache["mamba"]["conv"]
+    for app, g in enumerate(range(0, cfg.n_layers, cfg.attn_every)):
+        x = _block_decode(params["shared_attn"], x, cache["k"][app],
+                          cache["v"][app], pos, cos, sin, cfg)
+        for i in range(g, min(g + cfg.attn_every, cfg.n_layers)):
+            blk = blocks[i]
+            h = rms_norm(x, blk["ln1_scale"])
+            x = x + mamba2.mamba2_decode(blk, h, {"ssm": ssm[i],
+                                                  "conv": conv[i]}, cfg)
+    return x

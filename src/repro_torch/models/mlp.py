@@ -2,12 +2,12 @@
 leaves its products to ``torch.matmul`` (as the reference leaves them to
 XLA); :func:`mlp_decode` sends each product of the one-token decode
 through the ``tiered_matmul`` kernel.  The plain two-layer MLP of other
-families is queued in ROADMAP.md (queue 1: "The other nine configs and
+families is queued in ROADMAP.md (queue 1: "The other eight configs and
 the moe family")."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -17,14 +17,17 @@ from .common import ACTIVATIONS, dense_init
 
 
 def init_mlp_params(generator: torch.Generator, cfg: ArchConfig,
-                    n_layers: int, dtype=torch.bfloat16
+                    n_layers: Optional[int], dtype=torch.bfloat16
                     ) -> Dict[str, torch.Tensor]:
-    d, f, L = cfg.d_model, cfg.d_ff, n_layers
+    """Stacked over a leading layer axis of ``n_layers``, or one unstacked
+    block with ``n_layers=None``."""
+    d, f = cfg.d_model, cfg.d_ff
+    L = () if n_layers is None else (n_layers,)
     _require_gated(cfg)
     return {
-        "w_gate": dense_init(generator, (L, d, f), dtype),
-        "w_up": dense_init(generator, (L, d, f), dtype),
-        "w_down": dense_init(generator, (L, f, d), dtype),
+        "w_gate": dense_init(generator, (*L, d, f), dtype),
+        "w_up": dense_init(generator, (*L, d, f), dtype),
+        "w_down": dense_init(generator, (*L, f, d), dtype),
     }
 
 
@@ -53,4 +56,4 @@ def _require_gated(cfg: ArchConfig) -> None:
     if cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_type {cfg.mlp_type!r} is not ported yet (ROADMAP.md, "
-            "queue 1: 'The other nine configs and the moe family')")
+            "queue 1: 'The other eight configs and the moe family')")

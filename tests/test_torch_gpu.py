@@ -259,3 +259,142 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     assert step == 7
     for a, b in zip(_tree.leaves(state), _tree.leaves(back)):
         assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+
+
+# ------------------------------------------------------------ SSD scan
+# fp32 throughout; the reference's SSD tolerance (tests/test_kernels.py),
+# except d(log a) with decays near 1: a reverse cumulative sum over up to
+# 256 positions whose partial sums reach |240|, where the fp32 plain
+# version and the kernel lie 1.4e-4 and 2.9e-4 from float64 and 3.05e-4
+# apart on an H100 (chip_smoke.SSD_DLOGA_NEAR1_TOL)
+SSD_TOL = 1e-4
+SSD_DLOGA_NEAR1_TOL = 1e-3
+
+
+def _ssd_inputs(B, H, S, N, P, seed, bcast, near1=False):
+    """Decays a = sigmoid(randn), or with ``near1`` exp(-U(1e-3, 0.02)) as
+    real Mamba-2 heads: only then do the carried state, the dS carry and
+    the sub-tiles far below the diagonal reach the outputs with weight
+    (e^{cum_L} ~ 0.07 over 256 positions, against e^-200 with sigmoid)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    if near1:
+        a = torch.exp(-(1e-3 + 0.019 * torch.rand((B, S, H), generator=g,
+                                                  device="cuda")))
+    else:
+        a = torch.sigmoid(r(B, S, H))
+    if bcast:   # the model's layout: (B, S, H, .) with k, q broadcast over H
+        k, q = (r(B, S, N)[:, :, None].expand(B, S, H, N) * 0.3
+                for _ in range(2))
+    else:
+        k, q = r(B, S, H, N) * 0.3, r(B, S, H, N) * 0.3
+    v = r(B, S, H, P) * 0.3
+    return [t.transpose(1, 2) for t in (a, k, v, q)]
+
+
+SSD_CASES = [
+    (2, 3, 512, 64, 64, 256, False, False), (2, 3, 300, 32, 64, 128, False,
+                                             True),
+    (2, 3, 256, 16, 16, 256, False, False), (2, 8, 24, 16, 16, 24, True,
+                                             False),
+    (1, 4, 1000, 64, 64, 256, True, True), (1, 2, 130, 8, 96, 64, True,
+                                            True)]
+
+
+def _check_ssd_kernels(B, H, S, N, P, chunk, bcast, init, near1):
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    a, k, v, q = _ssd_inputs(B, H, S, N, P, 12, bcast, near1)
+    s0 = _randn((B, H, N, P), torch.float32, 13, 0.3) if init else None
+    before = (ss.launches, ss.bwd_launches)
+    y, fin, states = ss.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    torch.cuda.synchronize()
+    assert ss.launches == before[0] + 1
+    yp, finp, stp = ss._plain_forward(a, k, v, q, chunk, s0)
+    for got, want in ((y, yp), (fin, finp), (states, stp)):
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+    if P > 64:          # the backward kernel takes P <= 64
+        return
+    dy = _randn((B, H, S, P), torch.float32, 14)
+    dfin = _randn((B, H, N, P), torch.float32, 15)
+    grads = ss.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, init)
+    torch.cuda.synchronize()
+    assert ss.bwd_launches == before[1] + 1
+    want = ss.ssd_scan_bwd_plain(a, k, v, q, dy, stp, finp, dfin, chunk, init)
+    for name, g, w in zip(("da", "dk", "dv", "dq", "dinit"), grads, want):
+        if w is None:
+            assert g is None
+            continue
+        tol = SSD_TOL
+        if name == "da":        # compare d log a: da carries a 1/a factor
+            g, w = g * a, w * a
+            tol = SSD_DLOGA_NEAR1_TOL if near1 else SSD_TOL
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("B,H,S,N,P,chunk,bcast,init", SSD_CASES)
+def test_ssd_scan_kernels_match_plain(cuda, B, H, S, N, P, chunk, bcast,
+                                      init):
+    _check_ssd_kernels(B, H, S, N, P, chunk, bcast, init, False)
+
+
+@pytest.mark.parametrize("B,H,S,N,P,chunk,bcast,init", SSD_CASES)
+def test_ssd_scan_kernels_match_plain_with_decays_near_one(
+        cuda, B, H, S, N, P, chunk, bcast, init):
+    _check_ssd_kernels(B, H, S, N, P, chunk, bcast, init, True)
+
+
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    a, k, v, q = _ssd_inputs(1, 2, 40, 16, 16, 0, False)
+    with pytest.raises(ValueError, match="float32"):
+        ss.ssd_scan(a, k.bfloat16(), v, q)
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan(a, k, v, q, chunk=512)
+    a2, k2, v2, q2 = _ssd_inputs(1, 2, 40, 80, 16, 0, False)
+    with pytest.raises(ValueError, match="N <= 64"):
+        ss.ssd_scan(a2, k2, v2, q2)
+    a3, k3, v3, q3 = _ssd_inputs(1, 2, 40, 16, 80, 0, False)
+    y, _, states = ss.ssd_scan_fwd(a3, k3, v3, q3, 256, save_states=True)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ss.ssd_scan_bwd(a3, k3, v3, q3, y, states, y[:, :, 0], None, 256,
+                        False)
+
+
+def test_reduced_zamba2_forward_and_decode_on_card_match_the_cpu(cuda):
+    """The forward over 300 positions (a chunk of 256 and a ragged one, so
+    the scan carries its state) and six decode steps, card against CPU,
+    fp32 weights.  Decode runs with the model's bf16 conv window, logits
+    held to 1e-3 (``chip_smoke.ZAMBA_DECODE_TOL``: a window value may round
+    a bf16 ulp apart on the two devices and later layers follow it; 2.2e-4
+    measured on an H100, 0.70 with a decode kernel that drops the newest
+    key), and with the window in fp32 on both sides, where logits, SSM
+    state and window are held to 1e-4 (1.2e-5, 6.2e-5 and 3.8e-5
+    measured)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    cfg = get_config("zamba2").reduced()
+    cpu, gpu = (lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=d, dtype=torch.float32)
+                for d in ("cpu", "cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 300),
+                         generator=torch.Generator().manual_seed(3))
+    ops.reset_launch_counts()
+    want, _ = lm.forward(cpu, cfg, toks)
+    got, _ = lm.forward(gpu, cfg, toks.cuda())
+    assert ops.launch_counts()["ssd_scan"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for window, tol in ((torch.bfloat16, 1e-3), (torch.float32, 1e-4)):
+        caches = {d: lm.init_cache(cfg, 2, 16, device=d)
+                  for d in ("cpu", "cuda")}
+        for c in caches.values():
+            c["mamba"]["conv"] = c["mamba"]["conv"].to(window)
+        for i in range(6):
+            a = lm.decode_step(cpu, cfg, caches["cpu"], toks[:, i], i)
+            b = lm.decode_step(gpu, cfg, caches["cuda"], toks[:, i].cuda(), i)
+            torch.testing.assert_close(b.cpu(), a, rtol=tol, atol=tol)
+        if window == torch.float32:
+            for name in ("conv", "ssm"):
+                torch.testing.assert_close(
+                    caches["cuda"]["mamba"][name].cpu(),
+                    caches["cpu"]["mamba"][name], rtol=tol, atol=tol)
