@@ -8,7 +8,8 @@ result line) if any phase fails:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
-               nvcc for sm_90a, all at once, with the ptxas report;
+               nvcc for sm_90a, all at once, with the ptxas report and
+               each bf16 flash kernel's HGMMA count (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
                shapes of gemma-2b and zamba2-1.2b, with kernel / plain /
@@ -41,6 +42,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -95,12 +97,22 @@ SSD_TOL = 1e-4
 # a sub-tile 192 rows below the diagonal keeps ~0.13, so those terms weigh.
 SSD_DECAY_RANGE = (1e-3, 0.02)
 # ... and there d(log a) is a reverse cumulative sum over up to 256
-# positions whose partial sums reach |240|: at the training shape the fp32
-# plain version lies 1.4e-4 and the kernel 2.9e-4 from a float64 run of
-# the plain version, 3.05e-4 apart, while kernels that drop the carry or
-# the far sub-tiles lie 6 or more away (H100).  d(log a) with decays near
-# 1 is held to this; every other output of every SSD check to SSD_TOL.
+# positions whose partial sums reach |240|, where the fp32 plain version
+# itself lies 1.4e-4 from float64.  So with decays near 1 the kernel's
+# d(log a) is held against the plain version run in float64, to this: it
+# lies 2.2e-4 to 2.4e-4 away at the training shape (H100), 2.6e-4 of it
+# from its fp32 dq and dk (the `dloga_stages_vs_f64` columns), while
+# kernels that drop the carry or the far sub-tiles lie 6 or more away.
+# Every other output of every SSD check is held to SSD_TOL against the
+# fp32 plain version.
 SSD_DLOGA_NEAR1_TOL = 1e-3
+# Peaked flash checks (q x 8) run in bf16, the path the tensor-core
+# kernels serve.  In fp32 such scores make gradients of ~25 and outputs
+# whose fp32 rounding, in any summation order, exceeds the fp32 tolerances:
+# at (1, 1, 8, 300, 300, 256) the fp32 plain version itself lies 1.5e-5
+# (output) and 1.27e-4 (dk) from float64, the unchanged FFMA kernel 2.7e-5
+# and 2.5e-4 (H100).
+PEAKED_DTYPES = (torch.bfloat16,)
 PARITY_TOL = 1e-4
 # zamba2's decode keeps each layer's conv window in bf16 (as the reference
 # does): where the card's and the CPU's fp32 in_proj outputs straddle a
@@ -197,14 +209,50 @@ def phase_device() -> dict:
     return info
 
 
+# The bf16 flash kernels, by name, and the tensor-core instruction each
+# instantiation must run: wgmma (HGMMA) or mma.sync (HMMA).
+TENSOR_CORE_KERNELS = {
+    "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
+    "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"}}
+
+
+def _sass_counts(name: str) -> dict:
+    """HGMMA and HMMA instructions in each bf16 flash kernel of a built
+    library, from ``cuobjdump --dump-sass``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fn = fn if any(k in fn for k in TENSOR_CORE_KERNELS[name]) else None
+            if fn:
+                counts[fn] = dict(HGMMA=0, HMMA=0)
+        elif fn:
+            op = "HGMMA" if "HGMMA" in line else "HMMA" if "HMMA" in line \
+                else None
+            if op:
+                counts[fn][op] += 1
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     reports = build.build(list(KERNELS))
     for name in KERNELS:
         build.load(name)
+    sass = {name: _sass_counts(name) for name in TENSOR_CORE_KERNELS}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc=build.nvcc_path(), flags=build.NVCC_FLAGS,
-              ptxas=reports))
+              ptxas=reports, tensor_core_sass=sass))
+    for name, kernels in TENSOR_CORE_KERNELS.items():
+        for k, op in kernels.items():
+            found = {f: c for f, c in sass[name].items() if k in f}
+            require(found and all(c[op] > 0 for c in found.values()),
+                    f"every instantiation of {k} runs {op} ({found})")
 
 
 def _compare(out, plain, dtype, tol=TOL):
@@ -272,13 +320,16 @@ def _visible_pairs(S: int, T: int, causal: bool) -> int:
     return sum(min(s + 1, T) for s in range(S))
 
 
-def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen):
+def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen, peak=1.0):
     """Forward kernel against the plain forward (output and log-sum-exp);
-    backward kernel against autograd through the plain forward.  Timed at
-    the training shape only."""
+    backward kernel against autograd through the plain forward; q scaled by
+    ``peak`` (8: peaked scores, so the running max moves between key tiles
+    and a missing rescale shows).  Float64 columns and times at the two
+    training shapes only."""
     mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                     device="cuda").to(dtype)
-    q, k, v = mk(B, K, G, S, D), mk(B, K, T, D), mk(B, K, T, D)
+    q, k, v = (mk(B, K, G, S, D) * peak).to(dtype), mk(B, K, T, D), mk(
+        B, K, T, D)
     dout = mk(B, K, G, S, D)
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -289,7 +340,7 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen):
     err, ok = _compare(out, plain.detach(), dtype)
     lse_err, lse_ok = _compare(lse, plain_lse.detach(), torch.float32)
     g_err = [_compare(g, w, dtype, BWD_TOL) for g, w in zip(grads, want)]
-    shape = dict(B=B, K=K, G=G, S=S, T=T, D=D, causal=causal)
+    shape = dict(B=B, K=K, G=G, S=S, T=T, D=D, causal=causal, peak=peak)
     fwd = dict(phase="check", kernel="flash_attention", dtype=str(dtype)[6:],
                shape=shape, max_abs_err=err, lse_max_abs_err=lse_err,
                tol=TOL[dtype], ok=ok and lse_ok)
@@ -326,31 +377,49 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen):
         o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
         bwd["library_ms"] = timer(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), do4, retain_graph=True), 20)
-        if dtype == torch.float32 and (B, K, G, S, T, D) == TRAIN_SHAPE:
-            bwd.update(_f64_errors(q, k, v, dout, grads, causal))
+        f64 = _f64_errors(q, k, v, dout, out, grads, causal)
+        fwd.update(f64["fwd"])
+        bwd.update(f64["bwd"])
     return [fwd, bwd]
 
 
-def _f64_errors(q, k, v, dout, grads, causal) -> dict:
-    """Distance of the kernel's and the plain version's gradients from a
-    float64 reference: the measure of BWD_TOL's reason."""
-    leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+def _f64_errors(q, k, v, dout, out, grads, causal) -> dict:
+    """Distance of the kernel's and the plain version's output and
+    gradients (dq, dk, dv) from a float64 reference on the same inputs, one
+    (b, k) slab at a time: the measure of BWD_TOL's reason in fp32, and of
+    what rounding P and dS to bf16 costs in bf16."""
     S, T, D = q.shape[3], k.shape[2], q.shape[-1]
-    s = torch.einsum("bkgsd,bktd->bkgst", leaves[0] / D ** 0.5, leaves[1])
-    if causal:
-        s = s.masked_fill(torch.arange(T, device="cuda")[None, :]
-                          > torch.arange(S, device="cuda")[:, None], -1e30)
-    o = torch.einsum("bkgst,bktd->bkgsd", torch.softmax(s, -1), leaves[2])
-    gold = torch.autograd.grad(o, leaves, dout.double())
-    del s, o
-    plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    plain, _ = fa.flash_attention_plain(*plain_leaves, causal)
-    plain_g = torch.autograd.grad(plain, plain_leaves, dout)
-    return dict(
-        kernel_vs_f64=[(a.double() - b).abs().max().item()
-                       for a, b in zip(grads, gold)],
-        plain_vs_f64=[(a.double() - b).abs().max().item()
-                      for a, b in zip(plain_g, gold)])
+    mask = (torch.arange(T, device="cuda")[None, :]
+            > torch.arange(S, device="cuda")[:, None])
+    err = {w: [0.0] * 4 for w in ("kernel", "plain")}
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            sl = (slice(b, b + 1), slice(h, h + 1))
+            leaves = [t[sl].detach().double().requires_grad_()
+                      for t in (q, k, v)]
+            s = torch.einsum("bkgsd,bktd->bkgst", leaves[0] / D ** 0.5,
+                             leaves[1])
+            if causal:
+                s = s.masked_fill(mask, -1e30)
+            o = torch.einsum("bkgst,bktd->bkgsd", torch.softmax(s, -1),
+                             leaves[2])
+            gold = [o.detach()] + list(torch.autograd.grad(
+                o, leaves, dout[sl].double()))
+            del s, o
+            plain_leaves = [t[sl].detach().clone().requires_grad_()
+                            for t in (q, k, v)]
+            plain, _ = fa.flash_attention_plain(*plain_leaves, causal)
+            plain_g = [plain.detach()] + list(torch.autograd.grad(
+                plain, plain_leaves, dout[sl]))
+            mine = [out[sl]] + [g[sl] for g in grads]
+            for who, got in (("kernel", mine), ("plain", plain_g)):
+                for i, (x, w) in enumerate(zip(got, gold)):
+                    err[who][i] = max(err[who][i],
+                                      (x.double() - w).abs().max().item())
+    return dict(fwd=dict(kernel_vs_f64=err["kernel"][0],
+                         plain_vs_f64=err["plain"][0]),
+                bwd=dict(kernel_vs_f64=err["kernel"][1:],
+                         plain_vs_f64=err["plain"][1:]))
 
 
 def _ssd_work(B, H, S, N, P, chunk) -> tuple:
@@ -399,6 +468,10 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
     # d(log a) = da * a for the decays; dk, dq per head
     g_cmp = [(g * a if i == 0 else g, w * a if i == 0 else w)
              for i, (g, w) in enumerate(zip(grads, want))]
+    if decay == "near1":    # d(log a) against the float64 plain version
+        g_cmp[0] = (g_cmp[0][0].double(),
+                    _ssd_grads(torch.float64, a, k, v, q, s0, dy, dfin,
+                               chunk)[0])
     dloga_tol = SSD_DLOGA_NEAR1_TOL if decay == "near1" else SSD_TOL
     g_err = [_compare(g, w, torch.float32,
                       {torch.float32: dloga_tol if i == 0 else SSD_TOL})
@@ -412,12 +485,14 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
     bwd = dict(phase="check", kernel="ssd_scan_bwd", dtype="float32",
                shape=shape, max_abs_err=max(e for e, _ in g_err),
                dloga_dk_dv_dq_dinit_max_abs_err=[e for e, _ in g_err],
+               dloga_against="float64" if decay == "near1" else "float32",
                tol=SSD_TOL, dloga_tol=dloga_tol,
                ok=all(o for _, o in g_err))
     del leaves, py, pfin, pstates, want
     if (B, H, S, N, P, chunk) != SSD_TRAIN_SHAPE:
         return [fwd, bwd]
-    bwd.update(_ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads))
+    bwd.update(_ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads,
+                               decay == "near1"))
     if decay == "near1":
         nc = -(-S // chunk)
         kq = 2 * (k[:, 0].numel() if bcast else k.numel()) * 4
@@ -446,25 +521,59 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
     return [fwd, bwd]
 
 
-def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads) -> dict:
+def _ssd_grads(dtype, a, k, v, q, s0, dy, dfin, chunk) -> list:
+    """Gradients (d(log a), dk, dv, dq, d s0) of the plain forward run in
+    ``dtype`` on the same inputs, dk and dq per head."""
+    leaves = [t.detach().to(dtype).clone().requires_grad_()
+              for t in (a, k, v, q, s0)]
+    y, fin, _ = ssd._plain_forward(*leaves[:4], chunk, leaves[4])
+    g = torch.autograd.grad([y, fin], leaves, [dy.to(dtype), dfin.to(dtype)])
+    return [x * leaves[0].detach() if i == 0 else x for i, x in enumerate(g)]
+
+
+def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads,
+                    stages: bool) -> dict:
     """Distance of the kernel's and the fp32 plain version's gradients
-    (d(log a), dk, dv, dq, d s0) from the plain version's in float64."""
-    def grad_of(dtype):
-        leaves = [t.detach().to(dtype).clone().requires_grad_()
-                  for t in (a, k, v, q, s0)]
-        y, fin, _ = ssd._plain_forward(*leaves[:4], chunk, leaves[4])
-        g = torch.autograd.grad([y, fin], leaves,
-                                [dy.to(dtype), dfin.to(dtype)])
-        return [x * leaves[0].detach() if i == 0 else x
-                for i, x in enumerate(g)]
-    gold = grad_of(torch.float64)
-    plain = grad_of(torch.float32)
+    (d(log a), dk, dv, dq, d s0) from the plain version's in float64; with
+    ``stages``, d(log a)'s error split into its two stages (see
+    ``_dloga_stages``)."""
+    gold = _ssd_grads(torch.float64, a, k, v, q, s0, dy, dfin, chunk)
+    plain = _ssd_grads(torch.float32, a, k, v, q, s0, dy, dfin, chunk)
     mine = [g * a if i == 0 else g for i, g in enumerate(grads)]
-    return dict(
+    out = dict(
         kernel_vs_f64=[(x.double() - w).abs().max().item()
                        for x, w in zip(mine, gold)],
         plain_vs_f64=[(x.double() - w).abs().max().item()
                       for x, w in zip(plain, gold)])
+    if stages:
+        out["dloga_stages_vs_f64"] = _dloga_stages(k, q, mine, gold, chunk)
+    return out
+
+
+def _dloga_stages(k, q, mine, gold, chunk) -> dict:
+    """d(log a) is the reverse cumulative sum, per chunk, of q_i . dq_i -
+    k_i . dk_i (plus <dS, S_exit> at the chunk's last position).  Redoing
+    the dots and the sum in float64 from the kernel's own fp32 dq and dk
+    (the <dS, S_exit> term from the float64 run) isolates the error that
+    dq and dk bring (``products``) from the error of the kernel's own dots
+    and scan (``dots_and_scan``, the kernel against that rebuild)."""
+    B, H, S = mine[0].shape
+    nc = S // chunk
+
+    def dcum(dk, dq):
+        return ((q.double() * dq.double()).sum(-1)
+                - (k.double() * dk.double()).sum(-1))
+
+    def rev_scan(x):
+        x = x.reshape(B, H, nc, chunk)
+        return x.flip(-1).cumsum(-1).flip(-1).reshape(B, H, S)
+
+    last = torch.arange(chunk - 1, S, chunk, device=k.device)
+    exit_term = torch.zeros((B, H, S), dtype=torch.float64, device=k.device)
+    exit_term[..., last] = (gold[0] - dcum(gold[1], gold[3]))[..., last]
+    rebuilt = rev_scan(dcum(mine[1], mine[3]) + exit_term)
+    return dict(products=(rebuilt - gold[0]).abs().max().item(),
+                dots_and_scan=(mine[0].double() - rebuilt).abs().max().item())
 
 
 def phase_check(timer) -> list:
@@ -506,14 +615,24 @@ def phase_check(timer) -> list:
         for name, K, N in zamba_products:
             rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
                                      "zamba2:" + name))
-        for B, K, G, S, T, D, causal in (
+        for case in (
                 (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
                 (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
                 (1, 2, 4, 128, 384, 128, True), (1, 2, 4, 128, 384, 128, False),
                 (1, 2, 4, 128, 300, 128, False),    # T % 128 != 0 (R1)
                 (2, 1, 4, 24, 24, 16, True),        # the reduced config
+                # S and T multiples of no tile, at gemma-2b's G and D
+                (1, 1, 8, 300, 300, 256, True),
+                (1, 1, 8, 128, 384, 256, True),     # S != T at D = 256
+                (1, 32, 1, 512, 512, 64, True),     # zamba2's G, K, D
+                # peaked scores (q x 8): the running max moves
+                (1, 1, 8, 300, 300, 256, True, 8.0),
+                (1, 32, 1, 512, 512, 64, True, 8.0),
+                (1, 2, 4, 128, 300, 128, False, 8.0),
                 TRAIN_SHAPE + (True,)):
-            rows += _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen)
+            if len(case) > 7 and dtype not in PEAKED_DTYPES:
+                continue
+            rows += _flash_case(timer, dtype, *case[:7], gen, *case[7:])
             torch.cuda.empty_cache()
     # zamba2's shared attention in training, bf16 as the path runs it
     rows += _flash_case(timer, torch.bfloat16, *ZAMBA_FLASH_SHAPE, True, gen)
@@ -980,9 +1099,10 @@ def phase_train(arch: str, S: int, name: str) -> dict:
 
 
 TRAIN_GROUPS = {
-    "flash_attention": ["flash_fwd_kernel"],
-    "flash_attention_bwd": ["dkdv_kernel", "dq_kernel", "delta_kernel",
-                            "split_sum_kernel"],
+    "flash_attention": ["flash_fwd_kernel", "flash_fwd_wgmma"],
+    "flash_attention_bwd_dq": ["dq_wgmma", "dq_kernel", "delta_kernel"],
+    "flash_attention_bwd_dkdv": ["dkdv_wgmma", "dkdv_kernel",
+                                 "split_sum_kernel"],
     "ssd_scan": ["ssd_fwd_kernel"],
     "ssd_scan_bwd": ["ssd_bwd_kernel"],
     "cublas_products": ["nvjet", "gemm", "cutlass", "sm90_xmma"],

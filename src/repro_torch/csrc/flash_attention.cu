@@ -2,39 +2,52 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention`, body `_flash_kernel`): q (B,K,G,S,D) attends to
-// k, v (B,K,T,D) with an fp32 running softmax (m, l, acc), scale 1/sqrt(D)
-// applied to q in fp32 before the dot products, the causal mask
-// kpos > qpos (top-left aligned) and fully masked key tiles skipped.  It
-// also writes the log-sum-exp of each row's scaled scores (fp32,
-// (B,K,G,S)), which the backward kernel (csrc/flash_attention_bwd.cu)
-// recomputes the probabilities from.
+// k, v (B,K,T,D) with an fp32 running softmax (m, l, acc), scale 1/sqrt(D),
+// the causal mask kpos > qpos (top-left aligned) and fully masked key
+// tiles skipped.  It also writes the log-sum-exp of each row's scaled
+// scores (fp32, (B,K,G,S)), which the backward kernels
+// (csrc/flash_attention_bwd.cu) recompute the probabilities from.
 //
-// What bounds it on this card: operations.  At the training shape
-// (B=2, K=1, G=8, S=T=2048, D=256) the causal forward does about 34 GFLOP
-// on 25 MB of inputs and outputs -- ~1,400 flops per byte, far above the
-// ~295 an H100 needs before compute matters.
+// What bounds it on this card: operations.  The causal forward does
+// 4 * D * (visible pairs) flops: 34.4 GFLOP on 25 MB at gemma-2b's
+// training shape (B=2, K=1, G=8, S=T=2048, D=256), 34.8 us at the bf16
+// tensor-core rate; 137 GFLOP on 134 MB at zamba2-1.2b's (B=2, K=32, G=1,
+// S=T=4096, D=64), 139 us.  Both are far above the ~295 flops a byte an
+// H100 needs before compute matters.
 //
-// What the design does about it:
-// * The G heads of a group stay stacked, as on the TPU: one block owns 64
-//   stacked rows, row = s * G + g (8 positions x 8 heads for gemma-2b), so
-//   each K/V tile loaded into shared memory serves all G heads.  The TPU
-//   tile (G*128, D) = (1024, 256) in fp32 is 1 MB, far beyond the 227 KB a
-//   block may use; 64 rows x 64 keys x D <= 256 in fp32 is 215 KB.
-// * The TPU grid walks the key tiles in order on one core; here one block
-//   walks them in a loop for its row tile, and the row tiles of all (b, k)
-//   run in parallel (512 blocks at the training shape).  Blocks take the
-//   last row tiles first: under the causal mask they have the most keys.
-// * A row's position is row / G, not its stacked index; key tiles past the
-//   tile's last position are never loaded, and keys at or past T are
-//   masked in the kernel, so nothing is padded (reference defect R1).
-// * Arithmetic is FFMA from fp32 shared memory (flash_tiles.cuh): exact
-//   fp32 for fp32 inputs, as the reference's 2e-5 tolerance needs.  Each
-//   thread owns 4 rows x 4 keys of a score tile and 4 rows x D/16 columns
-//   of the output accumulator, and reads its operands as float4.
-// Simple first: no tensor cores (mma.sync / wgmma), no TMA, no pipeline
-// between the loads of one tile and the arithmetic of the last.
+// Two kernels, chosen by dtype:
+//
+// bf16 (`flash_fwd_wgmma`, the training path): tensor cores fed by TMA.
+// * A block owns 128 stacked query rows (row = s * G + g, as on the TPU,
+//   so that each K/V tile serves all G heads) in two consumer warpgroups
+//   of 64 rows, plus one producer warp.  Q is read once, by 16-byte loads
+//   into the 128-byte-swizzled layout wgmma reads.
+// * K and V arrive by TMA into a ring of 2-4 stages under mbarriers (full:
+//   the bytes landed; empty: both consumer warpgroups are done with the
+//   stage).  k, v are described as 3-D tensors (D, T, B*K), so a box past
+//   T is zero-filled instead of reading the next slab; keys at or past T
+//   are still masked here (reference defect R1).  The 128-byte swizzle
+//   caps a box at 64 bf16 wide: a tile of D = 256 is four boxes a tensor.
+// * S = Q K^T is wgmma m64nNk16 with both operands in shared memory
+//   (K-major); the online softmax runs on the fp32 accumulators, with the
+//   scale applied to the fp32 scores; P goes back to bf16 in registers,
+//   already in the layout of wgmma's A operand, and O += P V is wgmma with
+//   A from registers and V as an MN-major (transposed) B operand.
+// * The producer drops to 24 registers and the consumers rise to 240
+//   (setmaxnreg): a consumer thread holds D/2 fp32 accumulators of O.
+// * Key tiles past the block's last position are never loaded; only tiles
+//   that cross the diagonal or T are masked, by position (row / G).
+//   Blocks are issued longest first (all slabs' last row tiles first).
+//
+// fp32 (`flash_fwd_kernel`): FFMA from fp32 shared memory
+// (flash_tiles.cuh), exact fp32 as the reference's 2e-5 tolerance needs
+// (it rules out TF32).  One block owns 64 stacked rows and walks 64-key
+// tiles; each thread owns 4 rows x 4 keys of a score tile and 4 rows x
+// D/16 columns of the output, read as float4.  No tensor cores, no
+// pipeline between the loads of one tile and the arithmetic of the last.
 
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -188,23 +201,233 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <typename E, int kD>
+
+// ------------------------------------------------------------------ bf16
+using hopper::smem_addr;
+
+constexpr int kBlockRows = 128;        // two consumer warpgroups of 64
+constexpr int kWgThreads = 384;        // + one producer warpgroup
+
+template <int kD>
+struct WgCfg {
+  static constexpr int kN = kD == 256 ? 64 : 128;       // keys per tile
+  static constexpr int kPanels = kD / 64;               // 64-wide boxes
+  static constexpr int kStages = kD == 64 ? 4 : 2;
+  static constexpr int kQBytes = kPanels * kBlockRows * 128;
+  static constexpr int kTileBytes = kPanels * kN * 128;  // K or V
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kTileBytes + 2 * kStages * 8;
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, FwdArgs a) {
+  using C = WgCfg<kD>;
+  constexpr int kN = C::kN, kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Ks = Qs + C::kQBytes;
+  uint8_t* Vs = Ks + kStages * C::kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * C::kTileBytes);
+  uint64_t* empty = full + kStages;
+
+  const int bk = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int G = a.G, S = a.S, T = a.T, D = a.D;
+  const int q_first = r0 / G;
+  const int q_last = min(S - 1, (r0 + kBlockRows - 1) / G);
+  const int k_end = a.causal ? min(T, q_last + 1) : T;
+  const int n_tiles = (k_end + kN - 1) / kN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the K/V ring full
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        hopper::mbar_wait(&empty[st], ph ^ 1);
+        hopper::mbar_expect_tx(&full[st], 2 * C::kTileBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          const int off = st * C::kTileBytes + p * kN * 128;
+          hopper::tma_load_3d(Ks + off, &tm_k, &full[st], p * 64, i * kN, bk);
+          hopper::tma_load_3d(Vs + off, &tm_v, &full[st], p * 64, i * kN, bk);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns block rows 64 wg .. 64 wg + 63
+    hopper::regs_alloc<240>();
+    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+    const long long slab_q = (long long)bk * G * S * D;
+    const __nv_bfloat16* qb =
+        static_cast<const __nv_bfloat16*>(a.q) + slab_q;
+    constexpr int kChunks = kD / 8;
+    for (int idx = t; idx < 64 * kChunks; idx += 128) {
+      const int row = wg * 64 + idx / kChunks, ch = idx % kChunks;
+      const __nv_bfloat16* src = stacked_row(qb, r0 + row, G, S, D);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (src != nullptr && ch * 8 < D)
+        v = *reinterpret_cast<const uint4*>(src + ch * 8);
+      *reinterpret_cast<uint4*>(Qs + (ch / 8) * (kBlockRows * 128)
+                                + hopper::swizzle128(row, ch % 8)) = v;
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, 128);
+
+    // this thread's rows: ra and ra + 8 of the block, columns 2 (lane % 4)
+    // + {0, 1} of each 8-wide group of an accumulator
+    const int ra = wg * 64 + warp * 16 + (lane >> 2);
+    const int qpos[2] = {(r0 + ra) / G, (r0 + ra + 8) / G};
+    const int c2 = 2 * (lane & 3);
+    const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
+    float o[kD / 2];
+#pragma unroll
+    for (int v = 0; v < kD / 2; ++v) o[v] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint32_t q_base = smem_addr(Qs) + wg * 64 * 128;
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages, k0 = i * kN;
+      hopper::mbar_wait(&full[st], (i / kStages) & 1);
+      const uint32_t k_base = smem_addr(Ks + st * C::kTileBytes);
+      const uint32_t v_base = smem_addr(Vs + st * C::kTileBytes);
+
+      // S = Q K^T over D, 16 at a time (32 bytes inside a 128-byte row)
+      float s[kN / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        hopper::wgmma_ss<kN>(
+            s,
+            hopper::gmma_desc(q_base + (kk / 4) * kBlockRows * 128 + off, 0,
+                              1024),
+            hopper::gmma_desc(k_base + (kk / 4) * kN * 128 + off, 0, 1024),
+            kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+
+      // mask the tiles that cross T or the diagonal, by position
+      if (k0 + kN > T || (a.causal && k0 + kN - 1 > q_first)) {
+#pragma unroll
+        for (int v = 0; v < kN / 2; ++v) {
+          const int kp = k0 + 8 * (v >> 2) + c2 + (v & 1);
+          if (kp >= T || (a.causal && kp > qpos[(v >> 1) & 1]))
+            s[v] = -INFINITY;
+        }
+      }
+      // online softmax on the fp32 scores
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int v = 0; v < kN / 2; ++v)
+        mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], s[v]);
+      float base[2], corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        base[h] = mx[h] == -INFINITY ? 0.f : mx[h] * sl2;
+        corr[h] = exp2f(m[h] * sl2 - base[h]);
+        m[h] = mx[h];
+        l[h] *= corr[h];
+      }
+#pragma unroll
+      for (int v = 0; v < kN / 2; ++v) {
+        const int h = (v >> 1) & 1;
+        s[v] = exp2f(fmaf(s[v], sl2, -base[h]));
+        l[h] += s[v];
+      }
+#pragma unroll
+      for (int v = 0; v < kD / 2; ++v) o[v] *= corr[(v >> 1) & 1];
+      uint32_t pa[kN / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < kN / 16; ++kt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kt][r] = hopper::pack_bf16(s[8 * kt + 2 * r],
+                                        s[8 * kt + 2 * r + 1]);
+
+      // O += P V over the tile's keys, 16 at a time; V is MN-major: the
+      // leading offset steps 64 columns of D (one box), the stride 8 keys
+      hopper::wgmma_fence();
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int kt = 0; kt < kN / 16; ++kt)
+        hopper::wgmma_rs<kD>(o, pa[kt],
+                     hopper::gmma_desc(v_base + kt * 16 * 128, kN * 128,
+                                       1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + slab_q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = r0 + ra + 8 * h;
+      if (row >= S * G) continue;
+      const int g = row % G, sp = row / G;
+      const float denom = fmaxf(l[h], 1e-30f), inv = 1.f / denom;
+      __nv_bfloat16* orow = ob + ((long long)g * S + sp) * D;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = 8 * j + c2;
+        if (d < D)
+          *reinterpret_cast<uint32_t*>(orow + d) = hopper::pack_bf16(
+              o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      }
+      if ((lane & 3) == 0)
+        a.lse[((long long)bk * G + g) * S + sp] =
+            m[h] * a.scale + logf(denom);
+    }
+  }
+}
+
+template <int kD>
+int launch_wgmma(const FwdArgs& a, int BK, cudaStream_t stream) {
+  using C = WgCfg<kD>;
+  CUtensorMap tm_k, tm_v;
+  int err = hopper::kv_map(&tm_k, a.k, a.D, a.T, BK, C::kN);
+  if (err == 0) err = hopper::kv_map(&tm_v, a.v, a.D, a.T, BK, C::kN);
+  if (err != 0) return err;
+  auto kernel = flash_fwd_wgmma<kD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int row_tiles = (a.S * a.G + kBlockRows - 1) / kBlockRows;
+  kernel<<<dim3(BK, row_tiles), kWgThreads, C::kSmem, stream>>>(tm_k, tm_v,
+                                                               a);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
 int launch(const FwdArgs& a, int BK, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<kD>();
-  auto kernel = flash_fwd_kernel<E, kD>;
+  auto kernel = flash_fwd_kernel<float, kD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int row_tiles = (a.S * a.G + kRows - 1) / kRows;
   kernel<<<dim3(row_tiles, BK), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <typename E>
-int dispatch(const FwdArgs& a, int BK, cudaStream_t stream) {
-  if (a.D <= 64) return launch<E, 64>(a, BK, stream);
-  if (a.D <= 128) return launch<E, 128>(a, BK, stream);
-  return launch<E, 256>(a, BK, stream);
 }
 
 }  // namespace
@@ -222,7 +445,16 @@ extern "C" int flash_attention_fwd_launch(
   FwdArgs a{q, k, v, out, static_cast<float*>(lse), G, S, T, D, causal,
             scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, B * K, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, B * K, s);
+  const int BK = B * K;
+  if (dtype == 0) {
+    if (D <= 64) return launch<64>(a, BK, s);
+    if (D <= 128) return launch<128>(a, BK, s);
+    return launch<256>(a, BK, s);
+  }
+  if (dtype == 1) {
+    if (D <= 64) return launch_wgmma<64>(a, BK, s);
+    if (D <= 128) return launch_wgmma<128>(a, BK, s);
+    return launch_wgmma<256>(a, BK, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,13 @@
-// Tile staging shared by the flash-attention forward and backward kernels
-// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu).
+// Tile staging shared by the fp32 flash-attention kernels
+// (`flash_fwd_kernel` in csrc/flash_attention.cu; `dkdv_kernel`, `dq_kernel`
+// in csrc/flash_attention_bwd.cu), and the stacked-row addressing that the
+// bf16 tensor-core kernels use as well (their primitives are in
+// csrc/hopper.cuh).
 //
-// Both kernels run on 256 threads and keep every tile in shared memory as
-// fp32, whatever the input dtype: the arithmetic is FFMA throughout, so
-// fp32 inputs keep full fp32 precision (no TF32) and bf16 inputs are
-// widened once, when their tile is staged.
+// The fp32 kernels run on 256 threads and keep every tile in shared memory
+// as fp32: the arithmetic is FFMA throughout, so fp32 inputs keep full
+// fp32 precision, as the reference's 2e-5 tolerance needs (it rules out
+// TF32).
 
 #pragma once
 
@@ -25,26 +28,15 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x; o[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
 
 // Copies kTileRows rows of kD columns into shared memory (row stride ld
-// floats), widened to fp32 and multiplied by `mul`.  row_ptr(r) is the
-// global address of tile row r, or nullptr past the end; columns at or
-// past D (a multiple of 8) read as 0.  Every load of the tile is issued
-// before the first store, 16 bytes (bf16) or 32 bytes (fp32) each.
+// floats), multiplied by `mul`.  row_ptr(r) is the global address of tile
+// row r, or nullptr past the end; columns at or past D (a multiple of 8)
+// read as 0.  Every load of the tile is issued before the first store, 32
+// bytes each.
 template <int kTileRows, int kD, int ld, typename T, typename RowPtr>
 __device__ __forceinline__ void stage(float* dst, RowPtr row_ptr, int D,
                                       float mul) {

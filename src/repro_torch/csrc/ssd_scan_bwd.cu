@@ -34,7 +34,9 @@
 //   in registers.
 // * k and q may be broadcast over H (stride 0): each head writes its own dk
 //   and dq into (B, H, S, N) outputs, and autograd sums them over H.
-// * fp32 FFMA throughout, as in the forward.
+// * fp32 FFMA throughout, as in the forward, except the stage that forms
+//   d(log a): the per-position dots q.dq and k.dk, their difference and the
+//   256-long reverse scan run in double, 256 values a chunk.
 // Simple first: no tensor cores, no TMA.
 
 #include "ssd_tiles.cuh"
@@ -55,7 +57,8 @@ struct BwdArgs {
   int H, S, N, P, Q, nc;
 };
 
-constexpr int kSmemBytes = 4 * (8 * kT * kLd + 5 * kMaxQ + 8);
+constexpr int kSmemBytes = 4 * (8 * kT * kLd + 3 * kMaxQ)
+                           + 8 * (2 * kMaxQ + 8);
 
 __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
@@ -71,9 +74,9 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
   float* cum = dss + kT * kLd;       // kMaxQ each:
   float* ecum = cum + kMaxQ;         //   e^{cum_i}
   float* wdec = ecum + kMaxQ;        //   e^{cum_L - cum_j}
-  float* qdq = wdec + kMaxQ;         //   q_i . dq_i
-  float* kdk = qdq + kMaxQ;          //   k_j . dk_j
-  float* scratch = kdk + kMaxQ;      // 8
+  double* qdq = reinterpret_cast<double*>(wdec + kMaxQ);   // q_i . dq_i
+  double* kdk = qdq + kMaxQ;                               // k_j . dk_j
+  double* scratch = kdk + kMaxQ;     // 8
 
   const int tid = threadIdx.x, tx = tid & 15;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
@@ -103,13 +106,13 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
     const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
     const int n_tiles = (Qc + kT - 1) / kT;
     const float cs = block_scan(log_decay(A + s0 * a.va.s, a.va.s, tid, Qc),
-                                scratch);
+                                reinterpret_cast<float*>(scratch));
     cum[tid] = cs;
     const float* s_prev = a.states + (bh * (long long)a.nc + c) * NP;
     const float* s_exit = c + 1 < a.nc
         ? a.states + (bh * (long long)a.nc + c + 1) * NP
         : a.final_state + bh * NP;
-    float part = 0.f;
+    double part = 0.0;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -117,10 +120,11 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
         const int n = row_of(i), p = col_of(j);
         dss[n * kLd + p] = ds[i][j];
         if (n < a.N && p < a.P)
-          part = fmaf(ds[i][j], s_exit[(long long)n * a.P + p], part);
+          part = fma((double)ds[i][j], (double)s_exit[(long long)n * a.P + p],
+                     part);
       }
     load_rows(sp, s_prev, a.P, kT, a.N, a.P);
-    const float ds_exit = block_sum(part, scratch);   // <dS, S_exit>
+    const double ds_exit = block_sum(part, scratch);  // <dS, S_exit>
     const float cL = cum[Qc - 1];
     if (tid < Qc) {
       ecum[tid] = expf(cum[tid]);
@@ -161,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       float t[4][4];
       zero(t);
       mm_nt(t, dyi, sp, kT);                            // dy_I S^T over p
-      float qd[4] = {0.f, 0.f, 0.f, 0.f};
+      double qd[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = I * kT + row_of(i);
@@ -173,13 +177,13 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
           const float g = fmaf(e, t[i][j], acc[i][j]);
           if (n < a.N) {
             DQ[(s0 + r) * (long long)a.N + n] = g;
-            qd[i] = fmaf(qi[row_of(i) * kLd + n], g, qd[i]);
+            qd[i] = fma((double)qi[row_of(i) * kLd + n], (double)g, qd[i]);
           }
         }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float s = sum16(qd[i]);
+        const double s = sum16(qd[i]);
         if (tx == 0) qdq[I * kT + row_of(i)] = s;
       }
       __syncthreads();
@@ -228,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       zero(tv);
       mm_nt(tk, vj, dss, kT);                           // v_J dS^T over p
       mm_nn(tv, kj, dss, kT);                           // k_J dS over n
-      float kd[4] = {0.f, 0.f, 0.f, 0.f};
+      double kd[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = J * kT + row_of(i);
@@ -240,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
           const float g = fmaf(w, tk[i][j], gk[i][j]);
           if (col < a.N) {
             DK[(s0 + r) * (long long)a.N + col] = g;
-            kd[i] = fmaf(kj[row_of(i) * kLd + col], g, kd[i]);
+            kd[i] = fma((double)kj[row_of(i) * kLd + col], (double)g, kd[i]);
           }
           if (col < a.P)
             DV[(s0 + r) * (long long)a.P + col] = fmaf(w, tv[i][j], gv[i][j]);
@@ -248,21 +252,24 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float s = sum16(kd[i]);
+        const double s = sum16(kd[i]);
         if (tx == 0) kdk[J * kT + row_of(i)] = s;
       }
       __syncthreads();
     }
 
-    // ---- dlog a = reverse cumsum of dcum; da = dlog a / a
+    // ---- dlog a = reverse cumsum of dcum; da = dlog a / a.  The dots,
+    // the cancelling difference and the scan run in double: partial sums
+    // reach |240| where decays are near 1, and an fp32 scan over 256 of
+    // them loses the fourth decimal.
     const int idx = Qc - 1 - tid;
-    float dcum = 0.f;
+    double dcum = 0.0;
     if (idx >= 0)
-      dcum = qdq[idx] - kdk[idx] + (idx == Qc - 1 ? ds_exit : 0.f);
-    const float dla = block_scan(dcum, scratch);
+      dcum = qdq[idx] - kdk[idx] + (idx == Qc - 1 ? ds_exit : 0.0);
+    const double dla = block_scan(dcum, scratch);
     if (idx >= 0) {
       const float av = A[(s0 + idx) * a.va.s];
-      DA[s0 + idx] = av > kMinA ? dla / av : 0.f;
+      DA[s0 + idx] = av > kMinA ? (float)(dla / av) : 0.f;
     }
     const float dec = expf(cL);
 #pragma unroll

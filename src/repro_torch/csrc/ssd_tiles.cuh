@@ -122,21 +122,23 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 }
 
 // Inclusive prefix sum over the block: thread t holds element t.  `scratch`
-// holds 8 floats.  Every thread of the block must call it.
-__device__ __forceinline__ float block_scan(float x, float* scratch) {
+// holds 8 values of T.  Every thread of the block must call it.  The SSD
+// backward scans d(log a) in double (see csrc/ssd_scan_bwd.cu).
+template <typename T>
+__device__ __forceinline__ T block_scan(T x, T* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, off);
+    const T y = __shfl_up_sync(0xffffffffu, x, off);
     if (lane >= off) x += y;
   }
   if (lane == 31) scratch[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    float w = lane < kThreads / 32 ? scratch[lane] : 0.f;
+    T w = lane < kThreads / 32 ? scratch[lane] : T(0);
 #pragma unroll
     for (int off = 1; off < kThreads / 32; off <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, w, off);
+      const T y = __shfl_up_sync(0xffffffffu, w, off);
       if (lane >= off) w += y;
     }
     if (lane < kThreads / 32) scratch[lane] = w;
@@ -148,14 +150,15 @@ __device__ __forceinline__ float block_scan(float x, float* scratch) {
 }
 
 // Sum over the block, in a fixed order; every thread gets it.
-__device__ __forceinline__ float block_sum(float x, float* scratch) {
+template <typename T>
+__device__ __forceinline__ T block_sum(T x, T* scratch) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) scratch[warp] = x;
   __syncthreads();
-  float total = 0.f;
+  T total = T(0);
 #pragma unroll
   for (int w = 0; w < kThreads / 32; ++w) total += scratch[w];
   __syncthreads();
@@ -163,7 +166,8 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
 }
 
 // Sum over the 16 lanes that share a tile row (lanes 0-15 or 16-31).
-__device__ __forceinline__ float sum16(float x) {
+template <typename T>
+__device__ __forceinline__ T sum16(T x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);

@@ -6,7 +6,9 @@ use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 under a file name that carries a hash of the source and of the shared
 headers (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged
 one is loaded as it is.  Nothing is compiled when the package is
-imported.
+imported.  The flash kernels' TMA tensor maps are encoded on the host
+through ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so no library
+links ``-lcuda``.
 """
 
 from __future__ import annotations

@@ -28,8 +28,9 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KEY_TILE_BWD = 32           # keys per block of the dk/dv kernel
-_ROW_TILE = 64               # stacked query rows per block
+#: keys per block of the dk/dv kernel: fp32 FFMA, bf16 tensor cores
+_KEY_TILE_BWD = {torch.float32: 32, torch.bfloat16: 64}
+_ROW_TILE = 64               # stacked query rows per step of that kernel
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -128,10 +129,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def _dkdv_split(B: int, K: int, G: int, S: int, T: int) -> int:
-    """Blocks per key tile in the dk/dv kernel: enough for about two
-    blocks per SM in all, no more than the row tiles there are, at most 8."""
-    blocks = B * K * -(-T // _KEY_TILE_BWD)
+def _dkdv_split(B: int, K: int, G: int, S: int, T: int,
+                key_tile: int) -> int:
+    """Blocks per key tile of ``key_tile`` keys in the dk/dv kernel: enough
+    for about two blocks per SM in all, no more than the row tiles there
+    are, at most 8.  Each extra split writes and reads one fp32 partial of
+    dk and dv (2 * B*K*T*D * 4 bytes)."""
+    blocks = B * K * -(-T // key_tile)
     row_tiles = -(-S * G // _ROW_TILE)
     return max(1, min(8, row_tiles, -(-264 // blocks)))
 
@@ -150,7 +154,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True
         raise ValueError("flash_attention_bwd: out and dout must match q")
     B, K, G, S, D = q.shape
     T = k.shape[2]
-    n_split = _dkdv_split(B, K, G, S, T)
+    n_split = _dkdv_split(B, K, G, S, T, _KEY_TILE_BWD[q.dtype])
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, K, G, S), dtype=torch.float32, device=q.device)
     part = torch.empty((n_split, 2, B * K, T, D) if n_split > 1 else (1,),

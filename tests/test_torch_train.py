@@ -187,6 +187,99 @@ def test_flash_gradient_matches_jax_grad(B, K, G, S, T, D, causal, dtype):
     assert ops.launch_counts()["flash_attention_bwd"] == 0   # CPU: no kernel
 
 
+# The cases the card's checks add for the tensor-core kernels, at reduced
+# size: q scaled by 8 ("peaked": the running max moves between key tiles,
+# so a missing rescale shows), S and T not multiples of any tile, S != T,
+# and G = 1 over many KV heads (zamba2's shared attention).
+def _peaked(seed, B, K, G, S, T, D, peak):
+    qa, = draws(seed, (B, K, G, S, D), scale=peak)
+    ka, va, ga = draws(seed + 1, (B, K, T, D), (B, K, T, D), (B, K, G, S, D))
+    return qa, ka, va, ga
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,G,S,T,D,peak", [
+    (1, 1, 8, 128, 128, 64, 8.0),     # peaked, G = 8
+    (1, 4, 1, 128, 256, 64, 8.0),     # peaked, G = 1, S != T
+    (1, 1, 2, 128, 384, 32, 1.0),     # S != T
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_kernel_on_peaked_inputs(
+        B, K, G, S, T, D, peak, dtype, causal):
+    """T a multiple of 128: the Pallas kernel in interpret mode."""
+    qa, ka, va, _ = _peaked(10, B, K, G, S, T, D, peak)
+    (jq, tq), (jk, tk), (jv, tv) = (both(a, dtype) for a in (qa, ka, va))
+    gold = ref_ops.flash_attention(jq, jk, jv, causal=causal,
+                                   force_pallas=True, interpret=True)
+    out, _ = port_fa.flash_attention_plain(tq, tk, tv, causal)
+    np.testing.assert_allclose(as_np(out), as_np(gold), **tol(dtype))
+
+
+RAGGED = [(1, 1, 8, 75, 75, 32, 1.0, True),      # S, T multiples of no tile
+          (1, 1, 8, 75, 75, 32, 8.0, True),      # ... and peaked
+          (1, 3, 1, 50, 90, 16, 8.0, True),      # G = 1, S != T, peaked
+          (2, 1, 4, 40, 120, 16, 8.0, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,G,S,T,D,peak,causal", RAGGED)
+def test_flash_ragged_and_peaked_match_the_oracle(B, K, G, S, T, D, peak,
+                                                  causal, dtype):
+    """T % 128 != 0: the oracle, since the Pallas wrapper pads (R1)."""
+    qa, ka, va, _ = _peaked(11, B, K, G, S, T, D, peak)
+    (jq, tq), (jk, tk), (jv, tv) = (both(a, dtype) for a in (qa, ka, va))
+    gold = ref_ref.flash_attention_ref(jq, jk, jv, causal=causal)
+    out, lse = port_fa.flash_attention_plain(tq, tk, tv, causal)
+    np.testing.assert_allclose(as_np(out), as_np(gold), **tol(dtype))
+    assert np.isfinite(as_np(lse)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,G,S,T,D,peak,causal", RAGGED)
+def test_flash_gradient_on_ragged_and_peaked_inputs_matches_jax_grad(
+        B, K, G, S, T, D, peak, causal, dtype):
+    """The forward and the backward's plain versions, through the autograd
+    entry, against jax.grad of the oracle.  Tolerance: the dtype's, with
+    atol scaled by the gradient's largest element, since scores scaled by
+    8 make gradients of ~25 whose fp32 sums cancel to near 0 elsewhere
+    (2e-5 of 25 is what two fp32 summation orders leave there)."""
+    qa, ka, va, ga = _peaked(12, B, K, G, S, T, D, peak)
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (both(a, dtype)
+                                              for a in (qa, ka, va, ga))
+
+    def f(q, k, v):
+        out = ref_ref.flash_attention_ref(q, k, v, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+
+    gold = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    for g, want in zip(torch.autograd.grad(out, leaves, tg), gold):
+        t = tol(dtype)
+        scale = max(1.0, float(np.abs(as_np(want)).max()))
+        np.testing.assert_allclose(as_np(g), as_np(want), rtol=t["rtol"],
+                                   atol=t["atol"] * scale)
+
+
+@pytest.mark.parametrize("shape,key_tile,want", [
+    ((2, 1, 8, 2048, 2048), 64, 5),     # gemma-2b training, bf16: 64 tiles
+    ((2, 1, 8, 2048, 2048), 32, 3),     # ... fp32: 128 tiles
+    ((2, 32, 1, 4096, 4096), 64, 1),    # zamba2-1.2b, bf16: 4096 tiles
+    ((1, 1, 1, 64, 1024), 64, 1),       # one row tile: nothing to split
+    ((1, 1, 8, 4096, 64), 64, 8),       # one key tile: at most 8
+    ((1, 1, 2, 100, 100), 64, 4),       # 4 row tiles of 64
+])
+def test_dkdv_split_fills_the_card_without_empty_blocks(shape, key_tile,
+                                                        want):
+    B, K, G, S, T = shape
+    n = port_fa._dkdv_split(B, K, G, S, T, key_tile)
+    assert n == want
+    row_tiles = -(-S * G // 64)
+    assert 1 <= n <= min(8, row_tiles)
+    # every split of every key tile gets a share of the row tiles
+    assert -(-row_tiles // n) * (n - 1) < row_tiles
+
+
 def test_flash_bwd_plain_equals_autograd_through_the_plain_forward():
     qa, ka, va, ga = draws(3, (1, 1, 4, 33, 16), (1, 1, 33, 16),
                            (1, 1, 33, 16), (1, 1, 4, 33, 16))
