@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Mutation check of the bf16 flash-attention forward, on one card.
+"""Mutation check of the hand-written kernels' checks, on one card.
 
-  python3 chip_mutants.py
+  python3 chip_mutants.py [name ...]
 
-Makes three broken copies of ``src/`` and ``chip_smoke.py`` under
-``build/mutants/``, each with one text replacement in
-``csrc/flash_attention.cu``; builds each copy's kernel, runs
-``chip_smoke.py``'s bf16 flash checks there and prints one JSON line per
-mutant with the checks it failed.  The checks can see these faults only
-if every mutant fails at least one of them (or crashes); the script exits
-non-zero otherwise.  The mutants:
+Makes broken copies of ``src/`` and ``chip_smoke.py`` under
+``build/mutants/``, each with one text replacement in one kernel source;
+builds each copy's kernel, runs ``chip_smoke.py``'s checks of that kernel
+there and prints one JSON line per mutant with the checks it failed.  The
+checks can see these faults only if every mutant fails at least one of
+them (or crashes); the script exits non-zero otherwise.  Names on the
+command line run those mutants only.  The mutants:
 
-- ``corr_dropped``: the online softmax never rescales (corr = 1);
-- ``last_partial_tile_skipped``: a key tile that ends past k_end is not
-  loaded;
-- ``diagonal_mask_dropped``: keys past a row's position are not masked.
+- bf16 flash-attention forward (the flash checks, bar the training shape):
+  ``corr_dropped`` (the online softmax never rescales),
+  ``last_partial_tile_skipped`` (a key tile that ends past k_end is not
+  loaded), ``diagonal_mask_dropped`` (keys past a row's position are not
+  masked);
+- decode attention (the decode checks at the serving shapes, G = 16,
+  peaked scores and behind a NaN fill of shared memory): ``merge_weight_dropped`` (the splits' partials are
+  summed without exp(m_split - m)), ``newest_row_dropped`` (row
+  ``length - 1`` is never read), ``split_partial_step_skipped`` (a split's
+  last partial step, the rows past its last whole step of R rows, is not
+  read), ``running_max_rescale_dropped`` (acc and l are never rescaled
+  when the running max grows), ``uncopied_chunks_read`` (a lane's chunks
+  past D, which no cp.async wrote, are read from the ring as if copied);
+- SSD-scan backward (the SSD checks with decays near 1):
+  ``dloga_inter_chunk_dropped`` (the term q_i . e^{cum_i} S dy_i of
+  d(log a), which carries the state from earlier chunks, is left out).
 """
 
 import json
@@ -24,25 +36,52 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH = "src/repro_torch/csrc/flash_attention.cu"
+DECODE = "src/repro_torch/csrc/decode_attention.cu"
+SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+# name: (source, text, replacement, checks)
 MUTANTS = {
-    "corr_dropped": ("        corr[h] = exp2f(m[h] * sl2 - base[h]);",
-                     "        corr[h] = 1.f;"),
+    "corr_dropped": (FLASH, "        corr[h] = exp2f(m[h] * sl2 - base[h]);",
+                     "        corr[h] = 1.f;", "flash"),
     "last_partial_tile_skipped": (
-        "  const int n_tiles = (k_end + kN - 1) / kN;",
-        "  const int n_tiles = k_end / kN;"),
+        FLASH, "  const int n_tiles = (k_end + kN - 1) / kN;",
+        "  const int n_tiles = k_end / kN;", "flash"),
     "diagonal_mask_dropped": (
+        FLASH,
         "          if (kp >= T || (a.causal && kp > qpos[(v >> 1) & 1]))",
-        "          if (kp >= T)"),
+        "          if (kp >= T)", "flash"),
+    "merge_weight_dropped": (
+        DECODE,
+        "      const float w = mx == -INFINITY ? 0.f : exp2f(wgt[s][g] - mx);",
+        "      const float w = 1.f;", "decode"),
+    "newest_row_dropped": (
+        DECODE, "min(a.length, t_begin + a.rows_per_split)",
+        "min(a.length - 1, t_begin + a.rows_per_split)", "decode"),
+    "split_partial_step_skipped": (
+        DECODE, "  const int n_steps = (n_rows + R - 1) / R;",
+        "  const int n_steps = n_rows / R;", "decode"),
+    "running_max_rescale_dropped": (
+        DECODE, "      const float corr = exp2f(m[g] - m_new);",
+        "      const float corr = 1.f;", "decode"),
+    "uncopied_chunks_read": (
+        DECODE, "      if (li + lanes * j < c16) {", "      if (true) {",
+        "decode"),
+    "dloga_inter_chunk_dropped": (
+        SSD_BWD,
+        "        const double x = r < Qc ? (double)ecum[r] * qts : 0.0;",
+        "        const double x = 0.0;", "ssd_bwd"),
 }
-# chip_smoke.py's bf16 flash check cases, bar the training shape
-CHECKS = r'''
+_HEAD = r'''
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
-timer = cs.Timer()
 gen = torch.Generator(device="cuda").manual_seed(42)
+'''
+CHECKS = {
+    # chip_smoke.py's bf16 flash check cases, bar the training shape
+    "flash": _HEAD + r'''
+timer = cs.Timer()
 for c in [(1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
           (2, 2, 2, 256, 256, 128, True), (1, 2, 4, 128, 384, 128, True),
           (1, 2, 4, 128, 300, 128, False), (2, 1, 4, 24, 24, 16, True),
@@ -53,36 +92,74 @@ for c in [(1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
     fwd, _ = cs._flash_case(timer, torch.bfloat16, *c[:7], gen, *c[7:])
     print(json.dumps(dict(case=c, ok=fwd["ok"], err=fwd["max_abs_err"],
                           lse_err=fwd["lse_max_abs_err"])), flush=True)
-'''
+''',
+    # chip_smoke.py's decode check cases, untimed, and those behind a NaN
+    # fill of shared memory
+    "decode": _HEAD + r'''
+cases = []
+for dt in (torch.float32, torch.bfloat16):
+    cases += [(dt, 2, 2, 4, 128, 1024, 700, False),
+              (dt, 2, 2, 4, 128, 700, 650, False),
+              (dt, 2, 2, 4, 128, 2048, 1, False)]
+    cases += [(dt, 4, 1, 8, 256, 1024, n, True) for n in (1, 160, 1024)]
+    cases += [(dt, 4, 32, 1, 64, 1024, n, True) for n in (1, 160, 1024)]
+    cases += [(dt, 2, 2, 16, 128, 1024, n, True) for n in (1, 33, 161, 1024)]
+for c in cases:
+    r = cs._decode_case(None, *c, gen)
+    print(json.dumps(dict(case=str(c), ok=r["ok"], err=r["max_abs_err"])),
+          flush=True)
+for n in (160, 1024):
+    r = cs._decode_case(None, torch.bfloat16, 4, 32, 1, 64, 1024, n, True,
+                        gen, peak=8.0, against="float64")
+    print(json.dumps(dict(case=f"peaked zamba2 {n}", ok=r["ok"],
+                          err=r["max_abs_err"])), flush=True)
+for r in cs._stale_shared_cases(gen):
+    print(json.dumps(dict(case="stale NaN " + str(r["shape"]), ok=r["ok"],
+                          err=r["max_abs_err"])), flush=True)
+''',
+    # chip_smoke.py's SSD check cases with decays near 1, bar the training
+    # shape
+    "ssd_bwd": _HEAD + r'''
+for c in [(2, 3, 512, 64, 64, 256, False), (2, 3, 300, 32, 64, 128, False),
+          (2, 3, 256, 16, 16, 256, False), (1, 4, 1000, 64, 64, 256, True)]:
+    _, bwd = cs._ssd_case(None, *c, "near1", gen)
+    print(json.dumps(dict(case=c, ok=bwd["ok"], err=bwd["max_abs_err"])),
+          flush=True)
+''',
+}
 
 
 def main() -> int:
+    names = sys.argv[1:] or list(MUTANTS)
     caught = 0
-    for name, (old, new) in MUTANTS.items():
+    for name in names:
+        src, old, new, checks = MUTANTS[name]
         copy = os.path.join(ROOT, "build", "mutants", name)
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "src"), os.path.join(copy, "src"),
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copy)
-        path = os.path.join(copy, SRC)
+        path = os.path.join(copy, src)
         with open(path) as f:
             text = f.read()
         if text.count(old) != 1:
             print(f"chip_mutants: {name}: the line to replace is not in "
-                  f"{SRC} once", file=sys.stderr)
+                  f"{src} once", file=sys.stderr)
             return 1
         with open(path, "w") as f:
             f.write(text.replace(old, new))
-        run = subprocess.run([sys.executable, "-c", CHECKS], cwd=copy,
+        run = subprocess.run([sys.executable, "-c", CHECKS[checks]], cwd=copy,
                              capture_output=True, text=True, timeout=600)
         rows = [json.loads(line) for line in run.stdout.splitlines()
                 if line.startswith("{")]
         failed = [r for r in rows if not r["ok"]]
         caught += bool(failed) or run.returncode != 0
-        print(json.dumps(dict(mutant=name, rc=run.returncode,
+        print(json.dumps(dict(mutant=name, source=src, rc=run.returncode,
                               checks=len(rows), failed=len(failed),
-                              failing=failed)), flush=True)
-    return 0 if caught == len(MUTANTS) else 1
+                              failing=failed[:6],
+                              stderr=run.stderr[-300:] if run.returncode
+                              else "")), flush=True)
+    return 0 if caught == len(names) else 1
 
 
 if __name__ == "__main__":

@@ -8,13 +8,18 @@ result line) if any phase fails:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
-               nvcc for sm_90a, all at once, with the ptxas report and
-               each bf16 flash kernel's HGMMA count (required);
+               nvcc for sm_90a, all at once, with the ptxas report
+               (decode_attention compiled in every run, so that its report
+               is there to read: no spill, required) and each bf16 flash
+               kernel's HGMMA count (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
                shapes of gemma-2b and zamba2-1.2b, with kernel / plain /
-               bound / library times; the flash-attention and SSD-scan
-               backward kernels against autograd through the plain forward;
+               bound / library times and the launch floor (an empty
+               kernel); the flash-attention and SSD-scan backward kernels
+               against autograd through the plain forward, the SSD one's
+               d(log a) against float64 with decays near 1; decode
+               attention also behind a NaN fill of shared memory;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -63,7 +68,8 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_plain)
+    decode_attention_plain, fill_shared_memory_nan)
+from repro_torch.kernels.ref import decode_attention_f64  # noqa: E402
 from repro_torch.kernels.tiered_matmul import tiered_matmul_plain  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
@@ -86,8 +92,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # The SSD scan is fp32 only: the reference's tolerance (tests/test_kernels.py).
 # Its backward is held to the same 1e-4, on d(log a) = da * a rather than
-# da (da = d(log a) / a magnifies a rounding of d(log a) by 1/a); the
-# float64 columns of the training-shape row measure both versions' error.
+# da (da = d(log a) / a magnifies a rounding of d(log a) by 1/a).
 SSD_TOL = 1e-4
 # Decays of the SSD checks.  "strong": a = sigmoid(randn), mean log a about
 # -0.8, so the carried state, the dS carry and sub-tiles two or more below
@@ -95,17 +100,13 @@ SSD_TOL = 1e-4
 # dropped them would pass.  "near1": a = exp(-U(1e-3, 0.02)), as real
 # Mamba-2 heads (0.98 to 0.999): e^{cum_L} over a chunk of 256 is ~0.07 and
 # a sub-tile 192 rows below the diagonal keeps ~0.13, so those terms weigh.
+# There d(log a) sums terms up to |400| that cancel to as little as 0.03,
+# and the fp32 plain version's own rounding reaches 0.98 of allclose(1e-4)
+# (on the CPU, at the training shape): so with decays near 1 the kernel's
+# d(log a) is held against the plain version run in float64, at SSD_TOL;
+# and at the training shape, under both decays, no further from float64
+# than the fp32 plain version (the reference's arithmetic).
 SSD_DECAY_RANGE = (1e-3, 0.02)
-# ... and there d(log a) is a reverse cumulative sum over up to 256
-# positions whose partial sums reach |240|, where the fp32 plain version
-# itself lies 1.4e-4 from float64.  So with decays near 1 the kernel's
-# d(log a) is held against the plain version run in float64, to this: it
-# lies 2.2e-4 to 2.4e-4 away at the training shape (H100), 2.6e-4 of it
-# from its fp32 dq and dk (the `dloga_stages_vs_f64` columns), while
-# kernels that drop the carry or the far sub-tiles lie 6 or more away.
-# Every other output of every SSD check is held to SSD_TOL against the
-# fp32 plain version.
-SSD_DLOGA_NEAR1_TOL = 1e-3
 # Peaked flash checks (q x 8) run in bf16, the path the tensor-core
 # kernels serve.  In fp32 such scores make gradients of ~25 and outputs
 # whose fp32 rounding, in any summation order, exceeds the fp32 tolerances:
@@ -241,13 +242,24 @@ def _sass_counts(name: str) -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    reports = build.build(list(KERNELS))
+    # decode_attention compiled even when its library exists, so that its
+    # ptxas report is read in every run
+    reports = build.build(list(KERNELS), fresh=["decode_attention"])
     for name in KERNELS:
         build.load(name)
     sass = {name: _sass_counts(name) for name in TENSOR_CORE_KERNELS}
+    require(any("Used" in line for line in reports["decode_attention"]),
+            "a ptxas report for decode_attention")
+    # spill lines of the ptxas report of each source built in this run
+    spills = {name: [line for line in lines if "spill" in line
+                     and "0 bytes spill stores, 0 bytes spill loads"
+                     not in line] for name, lines in reports.items()}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc=build.nvcc_path(), flags=build.NVCC_FLAGS,
-              ptxas=reports, tensor_core_sass=sass))
+              ptxas=reports, spills=spills, tensor_core_sass=sass))
+    require(not spills["decode_attention"],
+            "no decode_attention instantiation spills "
+            f"({spills['decode_attention']})")
     for name, kernels in TENSOR_CORE_KERNELS.items():
         for k, op in kernels.items():
             found = {f: c for f, c in sass[name].items() if k in f}
@@ -262,7 +274,14 @@ def _compare(out, plain, dtype, tol=TOL):
             torch.allclose(a, b, rtol=tol[dtype], atol=tol[dtype]))
 
 
-def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen):
+def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen,
+                 peak=1.0, against="plain", stale_nan=False):
+    """The kernel against its plain version (``against="plain"``) or the
+    same attention in float64 (``"float64"``), on q scaled by ``peak``
+    (8: peaked scores, so the running max moves between tiles); with
+    ``stale_nan``, every SM's shared memory is filled with NaN just before
+    the kernel, so a read of shared memory it did not write shows; timed
+    beside the plain version and SDPA unless ``timer`` is None."""
     if cache_view:      # one layer of the serving cache, (B, T, K, D)
         kc = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
         vc = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
@@ -270,26 +289,55 @@ def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen):
     else:
         k = torch.randn((B, K, T, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, K, T, D), generator=gen, device="cuda").to(dtype)
-    q = torch.randn((B, K, G, D), generator=gen, device="cuda").to(dtype)
+    q = (torch.randn((B, K, G, D), generator=gen, device="cuda")
+         * peak).to(dtype)
+    if stale_nan:
+        fill_shared_memory_nan(q.device)
     out = ops.decode_attention(q, k, v, length)
-    plain = decode_attention_plain(q, k, v, length)
+    if against == "float64":
+        want = decode_attention_f64(q, k, v, length)
+    else:
+        want = decode_attention_plain(q, k, v, length)
     torch.cuda.synchronize()
-    err, ok = _compare(out, plain, dtype)
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * B * K * G * D + 2 * B * K * length * D) * size
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * K * G * length * D, dtype)
-    lib = None
-    if length:
-        kl, vl = k[:, :, :length], v[:, :, :length]
-        lib = timer(lambda: F.scaled_dot_product_attention(q, kl, vl))
-    return dict(
+    err, ok = _compare(out, want, dtype)
+    row = dict(
         phase="check", kernel="decode_attention", dtype=str(dtype)[6:],
         shape=dict(B=B, K=K, G=G, D=D, T=T, length=length,
-                   cache_view=cache_view),
-        max_abs_err=err, tol=TOL[dtype], ok=ok,
-        ms=timer(lambda: ops.decode_attention(q, k, v, length)),
-        plain_ms=timer(lambda: decode_attention_plain(q, k, v, length)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                   cache_view=cache_view, peak=peak, stale_nan=stale_nan),
+        against=against, max_abs_err=err, tol=TOL[dtype], ok=ok)
+    if timer is None:
+        return row
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * K * G * D + 2 * B * K * length * D) * size
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes, 4.0 * B * K * G * length * D, dtype)
+    row["library_ms"] = None
+    if length:
+        kl, vl = k[:, :, :length], v[:, :, :length]
+        row["library_ms"] = timer(
+            lambda: F.scaled_dot_product_attention(q, kl, vl))
+    row["ms"] = timer(lambda: ops.decode_attention(q, k, v, length))
+    row["plain_ms"] = timer(lambda: decode_attention_plain(q, k, v, length))
+    return row
+
+
+# Decode shapes whose lanes own 16-byte chunks past D, which the kernel
+# never copies into its ring: fp32 at D <= 128 (a lane's second chunk) and
+# at D = 160, bf16 where D / 8 is no power of 2 (D 96, 160); zamba2's
+# shape in fp32 among them.  (dtype, B, K, G, D, length)
+STALE_SHARED_CASES = [
+    (torch.float32, 4, 32, 1, 64, 160), (torch.float32, 2, 2, 16, 128, 161),
+    (torch.float32, 2, 1, 4, 16, 37), (torch.float32, 2, 2, 4, 160, 161),
+    (torch.bfloat16, 2, 2, 4, 96, 161), (torch.bfloat16, 2, 2, 4, 160, 33),
+    (torch.bfloat16, 4, 1, 8, 96, 1024)]
+
+
+def _stale_shared_cases(gen) -> list:
+    """The decode kernel behind a NaN fill of every SM's shared memory, at
+    the shapes of STALE_SHARED_CASES, against its plain version."""
+    return [_decode_case(None, dt, B, K, G, D, 1024, length, True, gen,
+                         stale_nan=True)
+            for dt, B, K, G, D, length in STALE_SHARED_CASES]
 
 
 def _matmul_case(timer, dtype, M, K, N, gen, name=None):
@@ -472,10 +520,8 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
         g_cmp[0] = (g_cmp[0][0].double(),
                     _ssd_grads(torch.float64, a, k, v, q, s0, dy, dfin,
                                chunk)[0])
-    dloga_tol = SSD_DLOGA_NEAR1_TOL if decay == "near1" else SSD_TOL
-    g_err = [_compare(g, w, torch.float32,
-                      {torch.float32: dloga_tol if i == 0 else SSD_TOL})
-             for i, (g, w) in enumerate(g_cmp)]
+    g_err = [_compare(g, w, torch.float32, {torch.float32: SSD_TOL})
+             for g, w in g_cmp]
     shape = dict(B=B, H=H, S=S, N=N, P=P, chunk=chunk, bcast=bcast,
                  decay=decay)
     fwd = dict(phase="check", kernel="ssd_scan", dtype="float32", shape=shape,
@@ -486,13 +532,16 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
                shape=shape, max_abs_err=max(e for e, _ in g_err),
                dloga_dk_dv_dq_dinit_max_abs_err=[e for e, _ in g_err],
                dloga_against="float64" if decay == "near1" else "float32",
-               tol=SSD_TOL, dloga_tol=dloga_tol,
-               ok=all(o for _, o in g_err))
+               tol=SSD_TOL, ok=all(o for _, o in g_err))
     del leaves, py, pfin, pstates, want
     if (B, H, S, N, P, chunk) != SSD_TRAIN_SHAPE:
         return [fwd, bwd]
-    bwd.update(_ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads,
-                               decay == "near1"))
+    bwd.update(_ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads))
+    # the kernel's d(log a) no further from float64 than the reference's
+    # arithmetic, the fp32 plain version
+    bwd["dloga_kernel_le_plain"] = (bwd["kernel_vs_f64"][0]
+                                    <= bwd["plain_vs_f64"][0])
+    bwd["ok"] = bwd["ok"] and bwd["dloga_kernel_le_plain"]
     if decay == "near1":
         nc = -(-S // chunk)
         kq = 2 * (k[:, 0].numel() if bcast else k.numel()) * 4
@@ -531,49 +580,23 @@ def _ssd_grads(dtype, a, k, v, q, s0, dy, dfin, chunk) -> list:
     return [x * leaves[0].detach() if i == 0 else x for i, x in enumerate(g)]
 
 
-def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads,
-                    stages: bool) -> dict:
+def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads) -> dict:
     """Distance of the kernel's and the fp32 plain version's gradients
-    (d(log a), dk, dv, dq, d s0) from the plain version's in float64; with
-    ``stages``, d(log a)'s error split into its two stages (see
-    ``_dloga_stages``)."""
+    (d(log a), dk, dv, dq, d s0) from the plain version's in float64, and
+    whether each one's d(log a) meets allclose(SSD_TOL) there."""
     gold = _ssd_grads(torch.float64, a, k, v, q, s0, dy, dfin, chunk)
     plain = _ssd_grads(torch.float32, a, k, v, q, s0, dy, dfin, chunk)
     mine = [g * a if i == 0 else g for i, g in enumerate(grads)]
-    out = dict(
+    tol = {torch.float32: SSD_TOL}
+    return dict(
         kernel_vs_f64=[(x.double() - w).abs().max().item()
                        for x, w in zip(mine, gold)],
         plain_vs_f64=[(x.double() - w).abs().max().item()
-                      for x, w in zip(plain, gold)])
-    if stages:
-        out["dloga_stages_vs_f64"] = _dloga_stages(k, q, mine, gold, chunk)
-    return out
-
-
-def _dloga_stages(k, q, mine, gold, chunk) -> dict:
-    """d(log a) is the reverse cumulative sum, per chunk, of q_i . dq_i -
-    k_i . dk_i (plus <dS, S_exit> at the chunk's last position).  Redoing
-    the dots and the sum in float64 from the kernel's own fp32 dq and dk
-    (the <dS, S_exit> term from the float64 run) isolates the error that
-    dq and dk bring (``products``) from the error of the kernel's own dots
-    and scan (``dots_and_scan``, the kernel against that rebuild)."""
-    B, H, S = mine[0].shape
-    nc = S // chunk
-
-    def dcum(dk, dq):
-        return ((q.double() * dq.double()).sum(-1)
-                - (k.double() * dk.double()).sum(-1))
-
-    def rev_scan(x):
-        x = x.reshape(B, H, nc, chunk)
-        return x.flip(-1).cumsum(-1).flip(-1).reshape(B, H, S)
-
-    last = torch.arange(chunk - 1, S, chunk, device=k.device)
-    exit_term = torch.zeros((B, H, S), dtype=torch.float64, device=k.device)
-    exit_term[..., last] = (gold[0] - dcum(gold[1], gold[3]))[..., last]
-    rebuilt = rev_scan(dcum(mine[1], mine[3]) + exit_term)
-    return dict(products=(rebuilt - gold[0]).abs().max().item(),
-                dots_and_scan=(mine[0].double() - rebuilt).abs().max().item())
+                      for x, w in zip(plain, gold)],
+        dloga_allclose_f64=dict(
+            kernel=_compare(mine[0].double(), gold[0], torch.float32, tol)[1],
+            plain=_compare(plain[0].double(), gold[0], torch.float32,
+                           tol)[1]))
 
 
 def phase_check(timer) -> list:
@@ -591,6 +614,8 @@ def phase_check(timer) -> list:
     zamba_products = [("in_proj", zd, zproj), ("out_proj", d_in, zd),
                       ("wq", zd, zd), ("w_gate", zd, zcfg.d_ff),
                       ("w_down", zcfg.d_ff, zd)]
+    # the launch floor: an empty kernel, timed as every kernel is
+    floor_ms = timer(lambda: torch.cuda._sleep(0))
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for T, length in ((1024, 700), (512, 512), (2048, 1), (700, 650),
@@ -612,6 +637,10 @@ def phase_check(timer) -> list:
             rows.append(_decode_case(timer, dtype, 4, zcfg.n_kv_heads, 1,
                                      zcfg.resolved_head_dim, 1024, length,
                                      True, gen))
+        # the largest G the kernel takes, at D = 128
+        for length in (1, 33, 161, 1024):
+            rows.append(_decode_case(timer, dtype, 2, 2, 16, 128, 1024,
+                                     length, True, gen))
         for name, K, N in zamba_products:
             rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
                                      "zamba2:" + name))
@@ -634,6 +663,16 @@ def phase_check(timer) -> list:
                 continue
             rows += _flash_case(timer, dtype, *case[:7], gen, *case[7:])
             torch.cuda.empty_cache()
+    # zamba2's serving shape with peaked scores (q x 8): the running max
+    # moves between tiles and between splits
+    for length in (160, 1024):
+        rows.append(_decode_case(None, torch.bfloat16, 4, zcfg.n_kv_heads, 1,
+                                 zcfg.resolved_head_dim, 1024, length, True,
+                                 gen, peak=8.0, against="float64"))
+    rows += _stale_shared_cases(gen)
+    for r in rows:
+        if r["kernel"] == "decode_attention" and "ms" in r:
+            r["launch_floor_ms"] = floor_ms
     # zamba2's shared attention in training, bf16 as the path runs it
     rows += _flash_case(timer, torch.bfloat16, *ZAMBA_FLASH_SHAPE, True, gen)
     torch.cuda.empty_cache()
@@ -936,20 +975,29 @@ def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy / 1e3 / steps
-    by_group = {}
-    for name, (t, _) in by_name.items():
+    by_group, calls_by_group = {}, {}
+    for name, (t, c) in by_name.items():
         g = next((g for g, keys in (groups or {}).items()
                   if any(k in name for k in keys)), "other")
         by_group[g] = by_group.get(g, 0.0) + t / 1e3 / steps
+        calls_by_group[g] = calls_by_group.get(g, 0) + c / steps
     return dict(
-        ms_per_step_by_group=by_group,
+        ms_per_step_by_group=by_group, calls_per_step_by_group=calls_by_group,
         steps=steps, device_events=len(dev),
+        device_events_per_step=len(dev) / steps,
         device_busy_ms_per_step=busy_ms if dev else None,
         wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=profiled_ms,
         device_idle_share=(1.0 - busy_ms / wall_ms) if dev else None,
         top_kernels=[dict(name=n[:96], ms_per_step=t / 1e3 / steps,
                           calls_per_step=c / steps)
                      for n, (t, c) in top])
+
+
+# the port's serving kernels, by their names in the profile
+SERVE_GROUPS = {
+    "decode_attention": ["::decode_kernel<"],
+    "tiered_matmul": ["::mm_kernel<", "::splitk_sum_kernel"],
+}
 
 
 def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
@@ -962,7 +1010,7 @@ def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
     def run():
         for p in range(4, 4 + steps):
             lm.decode_step(params, cfg, cache, tok, p)
-    return _device_profile(run, steps, wall_ms)
+    return _device_profile(run, steps, wall_ms, SERVE_GROUPS)
 
 
 def _free() -> None:
@@ -1202,6 +1250,8 @@ def kernel_line(checks, paths) -> dict:
         if row["library_ms"] is None:
             row["library"] = "none: no single PyTorch call computes it"
         row["bound_by"] = rows[0]["bound_by"]
+        if name == "decode_attention":
+            row["launch_floor_ms"] = rows[0]["launch_floor_ms"]
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
         out.append(row)

@@ -1,6 +1,6 @@
 // Gradient of the SSD chunked scan (csrc/ssd_scan.cu), for sm_90a: da, dk,
 // dv, dq and d(initial state) from a, k, v, q, dy, the chunk-entry states
-// the forward saved (not recomputed), its final state and d(final state).
+// the forward saved (not recomputed) and d(final state).
 //
 // The TPU kernel it mirrors, src/repro/kernels/ssd_scan.py (`_ssd_kernel`),
 // has no backward kernel: the JAX package differentiates its pure-JAX twin
@@ -13,9 +13,16 @@
 //   dq_i = sum_j M_ij (dy_i . v_j) k_j + e^{cum_i} S dy_i
 //   dk_j = sum_i M_ij (dy_i . v_j) q_i + w_j dS v_j
 //   dv_j = sum_i M_ij (q_i . k_j) dy_i + w_j dS^T k_j
-//   dcum_i = q_i . dq_i - k_i . dk_i  (+ <dS, S_exit> at the last position)
-//   dlog a = reverse cumsum of dcum;  da = dlog a / a where a > 1e-37, else 0
 //   dS <- e^{cum_L} dS + sum_i e^{cum_i} q_i dy_i^T
+// and d(log a) at position t, from terms that are each formed once:
+//   dlog a_t = sum_{i>=t} (R_i - C_i + X_i) + e^{cum_L} <dS, S>
+//              + sum_{j<t} Y_j
+//   R_i = sum_j Z_ij,  C_j = sum_i Z_ij,  Z_ij = M_ij (q_i . k_j)(dy_i . v_j)
+//   X_i = e^{cum_i} q_i . (S dy_i),  Y_j = w_j k_j . (dS v_j)
+//   da = dlog a / a where a > 1e-37, else 0.
+// (The reference differentiates q_i . dq_i - k_i . dk_i + <dS, S_exit> at
+// the last position; the same sum, rearranged: the pairs i, j >= t and the
+// terms in S_exit - e^{cum_L} S cancel exactly, so they are never formed.)
 //
 // What bounds it on this card: operations, about 2.3x the forward's:
 // B*H*S*(Q*(2P + 3N) + 8*N*P) useful flops, 60.1 GFLOP at the zamba2
@@ -24,19 +31,24 @@
 // What the design does about it:
 // * One block per (b, h), P <= 64 and N <= 64: every sum over P (dy . v,
 //   S dy, dS v) and over N stays inside the block, so dq, dk, da and the
-//   scalar <dS, S_exit> need no reduction across blocks and no atomics; the
+//   scalar <dS, S> need no reduction across blocks and no atomics; the
 //   result is the same bits on every run.  128 blocks at the training
 //   shape.
 // * Two passes per chunk over 64 x 64 sub-tiles, each skipping the tiles
-//   above the diagonal: a row pass (dq, and dS's update) and a column pass
-//   (dk, dv).  Each recomputes the masked products it needs from tiles
-//   re-read from L2; only dS, its update and one output tile per pass live
-//   in registers.
+//   above the diagonal: a row pass (dq, X, and dS's update) and a column
+//   pass (dk, dv, Y, and the row and column sums of Z from the products it
+//   already forms).  Each recomputes the masked products it needs from
+//   tiles re-read from L2; only dS, its update and one output tile per
+//   pass live in registers.
 // * k and q may be broadcast over H (stride 0): each head writes its own dk
 //   and dq into (B, H, S, N) outputs, and autograd sums them over H.
-// * fp32 FFMA throughout, as in the forward, except the stage that forms
-//   d(log a): the per-position dots q.dq and k.dk, their difference and the
-//   256-long reverse scan run in double, 256 values a chunk.
+// * fp32 FFMA for dq, dk, dv, as in the forward.  d(log a) is built in
+//   double from fp32 dots: with decays near 1 its terms reach |400| and
+//   cancel to as little as 0.03, so every rounding of a large term shows.
+//   In double: log a and its running sum cum (an fp32 cum near -200 rounds
+//   cum_i - cum_j to 1.5e-5), Z, R, C, X, Y, the dS carry and its update,
+//   <dS, S> and both scans.  Formed from dq and dk instead, d(log a) lay
+//   2.2e-4 from float64 at the training shape, 1.5x the plain version.
 // Simple first: no tensor cores, no TMA.
 
 #include "ssd_tiles.cuh"
@@ -49,7 +61,6 @@ struct BwdArgs {
   const float* a; const float* k; const float* v; const float* q;
   const float* dy;
   const float* states;     // (B, H, nc, N, P): each chunk's entry state
-  const float* final_state;
   const float* dfinal;     // (B, H, N, P), or null for zeros
   float* da; float* dk; float* dv; float* dq;   // contiguous (B, H, S, .)
   float* dinit;            // (B, H, N, P), or null
@@ -57,26 +68,27 @@ struct BwdArgs {
   int H, S, N, P, Q, nc;
 };
 
-constexpr int kSmemBytes = 4 * (8 * kT * kLd + 3 * kMaxQ)
-                           + 8 * (2 * kMaxQ + 8);
+constexpr int kSmemBytes = 4 * (8 * kT * kLd + 2 * kMaxQ)
+                           + 8 * (3 * kMaxQ + 8);
 
 __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qi = smem;                  // row tile of q (then q * e^{cum})
+  float* qi = smem;                  // row tile of q
   float* dyi = qi + kT * kLd;        // row tile of dy
   float* kj = dyi + kT * kLd;        // column tile of k
   float* vj = kj + kT * kLd;         // column tile of v
   float* dm = vj + kT * kLd;         // M o (dy v^T)
   float* sm = dm + kT * kLd;         // M o (q k^T)
   float* sp = sm + kT * kLd;         // entry state (N x P)
-  float* dss = sp + kT * kLd;        // dS (N x P)
-  float* cum = dss + kT * kLd;       // kMaxQ each:
-  float* ecum = cum + kMaxQ;         //   e^{cum_i}
+  float* dss = sp + kT * kLd;        // dS (N x P), rounded to fp32
+  float* ecum = dss + kT * kLd;      // kMaxQ each: e^{cum_i}
   float* wdec = ecum + kMaxQ;        //   e^{cum_L - cum_j}
-  double* qdq = reinterpret_cast<double*>(wdec + kMaxQ);   // q_i . dq_i
-  double* kdk = qdq + kMaxQ;                               // k_j . dk_j
-  double* scratch = kdk + kMaxQ;     // 8
+  double* cum = reinterpret_cast<double*>(wdec + kMaxQ);   // kMaxQ each
+  double* fsum = cum + kMaxQ;        // R_i - C_i + X_i
+  double* ysum = fsum + kMaxQ;       // Y_j, then sum_{j<t} Y_j
+  double* scratch = ysum + kMaxQ;    // 8
+  double* csum = reinterpret_cast<double*>(dm);   // 16 x 64, column pass
 
   const int tid = threadIdx.x, tx = tid & 15;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
@@ -91,49 +103,46 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
   float* DQ = a.dq + bh * S * a.N;
   float* DV = a.dv + bh * S * a.P;
 
-  // dS: this thread's dS[n = row_of(i)][p = col_of(j)]
-  float ds[4][4];
+  // dS: this thread's dS[n = row_of(i)][p = col_of(j)], in double
+  double ds[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = row_of(i), p = col_of(j);
       ds[i][j] = (a.dfinal != nullptr && n < a.N && p < a.P)
-                 ? a.dfinal[bh * NP + (long long)n * a.P + p] : 0.f;
+                 ? a.dfinal[bh * NP + (long long)n * a.P + p] : 0.0;
     }
 
   for (int c = a.nc - 1; c >= 0; --c) {
     const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
     const int n_tiles = (Qc + kT - 1) / kT;
-    const float cs = block_scan(log_decay(A + s0 * a.va.s, a.va.s, tid, Qc),
-                                reinterpret_cast<float*>(scratch));
+    const double cs = block_scan(
+        tid < Qc ? log(fmax((double)A[(s0 + tid) * a.va.s], (double)kMinA))
+                 : 0.0, scratch);
     cum[tid] = cs;
     const float* s_prev = a.states + (bh * (long long)a.nc + c) * NP;
-    const float* s_exit = c + 1 < a.nc
-        ? a.states + (bh * (long long)a.nc + c + 1) * NP
-        : a.final_state + bh * NP;
     double part = 0.0;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = row_of(i), p = col_of(j);
-        dss[n * kLd + p] = ds[i][j];
+        dss[n * kLd + p] = (float)ds[i][j];
         if (n < a.N && p < a.P)
-          part = fma((double)ds[i][j], (double)s_exit[(long long)n * a.P + p],
-                     part);
+          part = fma(ds[i][j], (double)s_prev[(long long)n * a.P + p], part);
       }
     load_rows(sp, s_prev, a.P, kT, a.N, a.P);
-    const double ds_exit = block_sum(part, scratch);  // <dS, S_exit>
-    const float cL = cum[Qc - 1];
+    const double ds_prev = block_sum(part, scratch);  // <dS, S>
+    const double cL = cum[Qc - 1];
     if (tid < Qc) {
-      ecum[tid] = expf(cum[tid]);
-      wdec[tid] = expf(cL - cum[tid]);
+      ecum[tid] = expf((float)cs);
+      wdec[tid] = expf((float)(cL - cs));
     }
     __syncthreads();
 
-    // ---- row pass: dq, q . dq, and dS's update sum_i e^{cum_i} q_i dy_i^T
-    float dsu[4][4];
+    // ---- row pass: dq, X, and dS's update sum_i e^{cum_i} q_i dy_i^T
+    double dsu[4][4];
     zero(dsu);
     for (int I = 0; I < n_tiles; ++I) {
       const int rows = min(kT, Qc - I * kT);
@@ -156,7 +165,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
           for (int j = 0; j < 4; ++j) {
             const int r = I * kT + row_of(i), col = J * kT + col_of(j);
             dm[row_of(i) * kLd + col_of(j)] =
-                (col <= r && r < Qc) ? d[i][j] * expf(cum[r] - cum[col]) : 0.f;
+                (col <= r && r < Qc)
+                ? d[i][j] * expf((float)(cum[r] - cum[col])) : 0.f;
           }
         __syncthreads();
         mm_nn(acc, dm, kj, kT);                         // (M o D) @ k_J
@@ -165,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       float t[4][4];
       zero(t);
       mm_nt(t, dyi, sp, kT);                            // dy_I S^T over p
-      double qd[4] = {0.0, 0.0, 0.0, 0.0};
+      double qt[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = I * kT + row_of(i);
@@ -174,27 +184,25 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int n = col_of(j);
-          const float g = fmaf(e, t[i][j], acc[i][j]);
           if (n < a.N) {
-            DQ[(s0 + r) * (long long)a.N + n] = g;
-            qd[i] = fma((double)qi[row_of(i) * kLd + n], (double)g, qd[i]);
+            DQ[(s0 + r) * (long long)a.N + n] = fmaf(e, t[i][j], acc[i][j]);
+            qt[i] = fma((double)qi[row_of(i) * kLd + n], (double)t[i][j],
+                        qt[i]);
           }
         }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const double s = sum16(qd[i]);
-        if (tx == 0) qdq[I * kT + row_of(i)] = s;
+        const int r = I * kT + row_of(i);
+        const double qts = sum16(qt[i]);                // every lane
+        const double x = r < Qc ? (double)ecum[r] * qts : 0.0;
+        if (tx == 0) fsum[r] = x;                       // X_r
       }
-      __syncthreads();
-      for (int idx = tid; idx < rows * kT; idx += kThreads)
-        qi[(idx >> 6) * kLd + (idx & 63)] *= ecum[I * kT + (idx >> 6)];
-      __syncthreads();
-      mm_tn(dsu, qi, dyi, rows);                        // (q e^cum)^T dy
+      mm_tn_scaled_d(dsu, qi, dyi, ecum + I * kT, rows);  // (q e^cum)^T dy
       __syncthreads();
     }
 
-    // ---- column pass: dk, dv and k . dk
+    // ---- column pass: dk, dv, Y, and the row and column sums of Z
     for (int J = 0; J < n_tiles; ++J) {
       const int cols = min(kT, Qc - J * kT);
       load_rows(kj, K + (s0 + J * kT) * a.vk.s, a.vk.s, kT, cols, a.N);
@@ -202,6 +210,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       float gk[4][4], gv[4][4];
       zero(gk);
       zero(gv);
+      double zc[4] = {0.0, 0.0, 0.0, 0.0};              // column sums of Z
       for (int I = J; I < n_tiles; ++I) {
         const int rows = min(kT, Qc - I * kT);
         load_rows(qi, Qm + (s0 + I * kT) * a.vq.s, a.vq.s, kT, rows, a.N);
@@ -212,27 +221,38 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
         zero(s);
         mm_nt(d, dyi, vj, kT);                         // dy_I v_J^T
         mm_nt(s, qi, kj, kT);                          // q_I k_J^T
+        double zr[4] = {0.0, 0.0, 0.0, 0.0};            // row sums of Z
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int r = I * kT + row_of(i), col = J * kT + col_of(j);
-            const float m = (col <= r && r < Qc) ? expf(cum[r] - cum[col])
-                                                 : 0.f;
+            const float m = (col <= r && r < Qc)
+                            ? expf((float)(cum[r] - cum[col])) : 0.f;
             dm[row_of(i) * kLd + col_of(j)] = d[i][j] * m;
             sm[row_of(i) * kLd + col_of(j)] = s[i][j] * m;
+            const double z = (double)d[i][j] * (double)s[i][j] * (double)m;
+            zr[i] += z;
+            zc[j] += z;
           }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const double z = sum16(zr[i]);
+          if (tx == 0) fsum[I * kT + row_of(i)] += z;   // R_r
+        }
         __syncthreads();
         mm_tn(gk, dm, qi, kT);                          // (M o D)^T q_I
         mm_tn(gv, sm, dyi, kT);                         // (M o Sc)^T dy_I
         __syncthreads();
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) csum[(tid >> 4) * kT + col_of(j)] = zc[j];
       float tk[4][4], tv[4][4];
       zero(tk);
       zero(tv);
       mm_nt(tk, vj, dss, kT);                           // v_J dS^T over p
       mm_nn(tv, kj, dss, kT);                           // k_J dS over n
-      double kd[4] = {0.0, 0.0, 0.0, 0.0};
+      double kt[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = J * kT + row_of(i);
@@ -241,10 +261,10 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = col_of(j);
-          const float g = fmaf(w, tk[i][j], gk[i][j]);
           if (col < a.N) {
-            DK[(s0 + r) * (long long)a.N + col] = g;
-            kd[i] = fma((double)kj[row_of(i) * kLd + col], (double)g, kd[i]);
+            DK[(s0 + r) * (long long)a.N + col] = fmaf(w, tk[i][j], gk[i][j]);
+            kt[i] = fma((double)kj[row_of(i) * kLd + col], (double)tk[i][j],
+                        kt[i]);
           }
           if (col < a.P)
             DV[(s0 + r) * (long long)a.P + col] = fmaf(w, tv[i][j], gv[i][j]);
@@ -252,30 +272,39 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const double s = sum16(kd[i]);
-        if (tx == 0) kdk[J * kT + row_of(i)] = s;
+        const int r = J * kT + row_of(i);
+        const double kts = sum16(kt[i]);                // every lane
+        const double y = r < Qc ? (double)wdec[r] * kts : 0.0;
+        if (tx == 0) ysum[r] = y;                       // Y_r
+      }
+      __syncthreads();
+      if (tid < kT) {                                   // C_c, rows in order
+        double z = 0.0;
+        for (int ty = 0; ty < kThreads / 16; ++ty) z += csum[ty * kT + tid];
+        fsum[J * kT + tid] -= z;
       }
       __syncthreads();
     }
 
-    // ---- dlog a = reverse cumsum of dcum; da = dlog a / a.  The dots,
-    // the cancelling difference and the scan run in double: partial sums
-    // reach |240| where decays are near 1, and an fp32 scan over 256 of
-    // them loses the fourth decimal.
+    // ---- dlog a_t = sum_{i>=t} fsum_i + e^{cum_L} <dS, S> + sum_{j<t} Y_j;
+    // da = dlog a / a.  Thread t scans position Qc-1-t for the first sum
+    // and position t for the second.
     const int idx = Qc - 1 - tid;
-    double dcum = 0.0;
-    if (idx >= 0)
-      dcum = qdq[idx] - kdk[idx] + (idx == Qc - 1 ? ds_exit : 0.0);
-    const double dla = block_scan(dcum, scratch);
+    const double after = block_scan(idx >= 0 ? fsum[idx] : 0.0, scratch);
+    const double y = tid < Qc ? ysum[tid] : 0.0;
+    const double before = block_scan(y, scratch) - y;
+    ysum[tid] = before;
+    const double dec = exp(cL);
+    __syncthreads();
     if (idx >= 0) {
+      const double dla = after + dec * ds_prev + ysum[idx];
       const float av = A[(s0 + idx) * a.va.s];
       DA[s0 + idx] = av > kMinA ? (float)(dla / av) : 0.f;
     }
-    const float dec = expf(cL);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ds[i][j] = fmaf(dec, ds[i][j], dsu[i][j]);
+      for (int j = 0; j < 4; ++j) ds[i][j] = fma(dec, ds[i][j], dsu[i][j]);
     __syncthreads();
   }
 
@@ -286,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
       for (int j = 0; j < 4; ++j) {
         const int n = row_of(i), p = col_of(j);
         if (n < a.N && p < a.P)
-          a.dinit[bh * NP + (long long)n * a.P + p] = ds[i][j];
+          a.dinit[bh * NP + (long long)n * a.P + p] = (float)ds[i][j];
       }
   }
 }
@@ -294,15 +323,14 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(BwdArgs a) {
 }  // namespace
 
 // Strides as in ssd_scan_fwd_launch, for a, k, v, q and dy; states
-// (B,H,nc,N,P), final and dfinal (B,H,N,P) and the outputs da (B,H,S),
+// (B,H,nc,N,P), dfinal (B,H,N,P) and the outputs da (B,H,S),
 // dk, dq (B,H,S,N), dv (B,H,S,P) and dinit (B,H,N,P) contiguous.  N, P <=
 // 64, 1 <= Q <= 256.  dfinal and dinit may be null.  Returns a CUDA error
 // code (0 on success).
 extern "C" int ssd_scan_bwd_launch(
     const float* a, const float* k, const float* v, const float* q,
-    const float* dy, const float* states, const float* final_state,
-    const float* dfinal, float* da, float* dk, float* dv, float* dq,
-    float* dinit,
+    const float* dy, const float* states, const float* dfinal, float* da,
+    float* dk, float* dv, float* dq, float* dinit,
     long long ab, long long ah, long long as,
     long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs,
@@ -312,7 +340,7 @@ extern "C" int ssd_scan_bwd_launch(
   if (B < 1 || H < 1 || S < 1 || N < 1 || N > kT || P < 1 || P > kT
       || Q < 1 || Q > kMaxQ)
     return (int)cudaErrorInvalidValue;
-  BwdArgs args{a, k, v, q, dy, states, final_state, dfinal, da, dk, dv, dq,
+  BwdArgs args{a, k, v, q, dy, states, dfinal, da, dk, dv, dq,
                dinit, {ab, ah, as}, {kb, kh, ks}, {vb, vh, vs},
                {qb, qh, qs}, {yb, yh, ys}, H, S, N, P, Q, (S + Q - 1) / Q};
   cudaError_t err = cudaFuncSetAttribute(

@@ -102,11 +102,36 @@ __device__ __forceinline__ void mm_tn(float acc[4][4], const float* A,
   }
 }
 
-__device__ __forceinline__ void zero(float acc[4][4]) {
+// acc[i][j] += sum_{k<K} A[k][row_i] * B[k][col_j] * scale[k], in double
+// (the SSD backward's dS carry, csrc/ssd_scan_bwd.cu)
+__device__ __forceinline__ void mm_tn_scaled_d(double acc[4][4],
+                                               const float* A,
+                                               const float* B,
+                                               const float* scale, int K) {
+  const int r0 = (threadIdx.x >> 4) * 4;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    const float4 a = ld4(A + k * kLd + r0);
+    const double sk = scale[k];
+    double b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[k * kLd + col_of(j)] * sk;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[0][j] = fma((double)a.x, b[j], acc[0][j]);
+      acc[1][j] = fma((double)a.y, b[j], acc[1][j]);
+      acc[2][j] = fma((double)a.z, b[j], acc[2][j]);
+      acc[3][j] = fma((double)a.w, b[j], acc[3][j]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void zero(T acc[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
 }
 
 // dst[r][c] = src[r * row_stride + c] for r < rows_valid and c < cols_valid,
@@ -123,7 +148,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 
 // Inclusive prefix sum over the block: thread t holds element t.  `scratch`
 // holds 8 values of T.  Every thread of the block must call it.  The SSD
-// backward scans d(log a) in double (see csrc/ssd_scan_bwd.cu).
+// backward scans log a and d(log a) in double (see csrc/ssd_scan_bwd.cu).
 template <typename T>
 __device__ __forceinline__ T block_scan(T x, T* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

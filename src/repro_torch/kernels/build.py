@@ -52,15 +52,18 @@ def _command(name: str, out: Path) -> List[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(names: Sequence[str]) -> Dict[str, List[str]]:
-    """Compile every named source that has no library yet, one ``nvcc`` per
-    source, all started together.  Returns each source's ``-Xptxas -v``
-    report (registers, shared memory, spills); raises on a failed build."""
+def build(names: Sequence[str],
+          fresh: Sequence[str] = ()) -> Dict[str, List[str]]:
+    """Compile every named source that has no library yet, and those in
+    ``fresh`` even if they have one, one ``nvcc`` per source, all started
+    together.  Returns the ``-Xptxas -v`` report (registers, shared memory,
+    spills) of each source compiled here, empty for one loaded as it was;
+    raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and name not in fresh:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(

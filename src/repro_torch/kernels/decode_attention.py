@@ -18,7 +18,11 @@ from . import build, ref
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-_TILE = 32                  # rows per tile in the kernel
+_HEADS = 8                  # query heads a block takes at most
+_STAGES = 8                 # steps in each warp's cp.async ring
+_WARPS = 4                  # warps of a block
+_MAX_SPLIT = 8              # blocks of a cluster (the portable size)
+_TARGET_BLOCKS = 264        # two blocks per SM of an H100 (132 SMs)
 _MAX_G, _MAX_D = 16, 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q dtype, cache dtype) pairs the kernel takes; an fp32 model reads a
@@ -56,15 +60,60 @@ def _check(q, k, v, length: int) -> None:
         raise ValueError("decode_attention: q, k, v on different devices")
 
 
-def _split_rows(batch_heads: int, length: int):
-    """(n_split, rows_per_split): split the valid rows of each (b, k) into
-    whole tiles, about two blocks per SM in all, at least one tile per
-    split.  ``n_split * rows >= length``, and every split owns rows (one
-    empty split when ``length == 0``)."""
-    tiles = -(-length // _TILE)
-    n_split = max(1, min(tiles, -(-264 // batch_heads)))
-    rows = -(-max(tiles, 1) // n_split) * _TILE
-    return max(1, -(-length // rows)), rows
+def _rows_per_step(D: int, elsize: int) -> int:
+    """Cache rows one warp covers at once: 32 lanes, as many to a row as
+    the row has 16-byte chunks (at most 32)."""
+    chunks, lanes = D * elsize // 16, 1
+    while lanes < chunks and lanes < 32:
+        lanes *= 2
+    return 32 // lanes
+
+
+def _heads_per_block(G: int) -> int:
+    """Query heads one block takes (1, 2, 4 or 8): all G of a KV head up to
+    8, so that each K and V row a block loads serves every one of them.
+    At G = 16 two blocks take 8 heads each and read each row once apiece
+    (the second read finds it in L2): 16 heads' q and acc would not fit a
+    lane's registers."""
+    heads = 1
+    while heads < min(G, _HEADS):
+        heads *= 2
+    return heads
+
+
+def _split_rows(groups: int, heads: int, D: int, elsize: int, length: int):
+    """(n_split, rows_per_split): the valid rows of each of ``groups``
+    (b, k, group of ``heads`` heads) split over the blocks of one cluster.
+    Enough blocks to cover the SMs twice, and no split longer than its
+    warps hold in flight at once (7 steps each); but at least 2 * heads
+    rows a split (each block's partial, heads x D in fp32, is read again in
+    the merge) and a step per warp, at most 8 splits.  Every split owns
+    rows; one empty split when ``length == 0``."""
+    if length == 0:
+        return 1, 1
+    step = _rows_per_step(D, elsize)
+    in_flight = _WARPS * (_STAGES - 1) * step
+    n = max(-(-_TARGET_BLOCKS // groups), -(-length // in_flight))
+    n = min(n, _MAX_SPLIT, max(1, length // max(2 * heads, _WARPS * step)))
+    rows = -(-length // n)
+    return -(-length // rows), rows
+
+
+def _check_cuda(q, k, v) -> None:
+    """What the kernel takes: G <= 16, D <= 256, and K and V rows it can
+    read in 16-byte pieces."""
+    B, K, G, D = q.shape
+    if G > _MAX_G or D > _MAX_D:
+        raise ValueError(f"decode_attention: kernel takes G <= {_MAX_G} and "
+                         f"D <= {_MAX_D} (got G={G}, D={D})")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("decode_attention: D must have unit stride")
+    vec = 16 // k.element_size()
+    if (D % vec or any(t.data_ptr() % 16 for t in (k, v))
+            or any(t.stride(i) % vec for t in (k, v) for i in range(3))):
+        raise ValueError("decode_attention: the kernel reads K and V rows in "
+                         "16-byte pieces: D, the cache strides and its "
+                         f"address must be multiples of {vec} elements")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,7 +121,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, K, G, D); k, v: (B, K, T, D), any strides with unit stride on
     D (the serving cache is passed as a strided view); ``length``: number
     of valid cache rows.  Returns (B, K, G, D) in q's dtype.  q may be
-    float32 over a bfloat16 cache."""
+    float32 over a bfloat16 cache.  One kernel launch a call."""
     global launches
     length = int(length)
     _check(q, k, v, length)
@@ -80,28 +129,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, length)
     if not q.is_cuda:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _check_cuda(q, k, v)
     B, K, G, D = q.shape
-    if G > _MAX_G or D > _MAX_D:
-        raise ValueError(f"decode_attention: kernel takes G <= {_MAX_G} and "
-                         f"D <= {_MAX_D} (got G={G}, D={D})")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("decode_attention: D must have unit stride")
-    n_split, rows = _split_rows(B * K, length)
+    heads = _heads_per_block(G)
+    n_split, rows = _split_rows(B * K * -(-G // heads), heads, D,
+                                k.element_size(), length)
+    # q read by 16-byte loads where its rows allow it
+    per = 16 // q.element_size()
+    q_vec = int(q.data_ptr() % 16 == 0
+                and all(q.stride(i) % per == 0 for i in range(3)))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((B * K, n_split, G, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B * K, n_split, G, 2), dtype=torch.float32,
-                          device=q.device)
-    fn = _bind()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             part_acc.data_ptr(), part_ml.data_ptr(),
-             B, K, G, D, length, n_split, rows, 1.0 / math.sqrt(D),
-             q.stride(0), q.stride(1), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             out.stride(0), out.stride(1), out.stride(2),
-             _DTYPES[q.dtype], _DTYPES[k.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, K, G, D, length, n_split, rows, heads, q_vec,
+                  1.0 / math.sqrt(D),
+                  q.stride(0), q.stride(1), q.stride(2),
+                  k.stride(0), k.stride(1), k.stride(2),
+                  v.stride(0), v.stride(1), v.stride(2),
+                  out.stride(0), out.stride(1), out.stride(2),
+                  _DTYPES[q.dtype], _DTYPES[k.dtype],
+                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -109,12 +155,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def fill_shared_memory_nan(device: torch.device) -> None:
+    """Fill the shared memory of every SM of ``device`` with NaN, on its
+    current stream: a kernel launched next gives NaN wherever it reads
+    shared memory it did not write first.  A check's aid; no serving or
+    training path calls it, and it counts no launch."""
+    fn = build.load("decode_attention").decode_attention_fill_shared_nan
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    err = fn(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fill_shared_memory_nan failed: CUDA error {err}")
+
+
 def _bind():
     lib = build.load("decode_attention")
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([P] * 6 + [I] * 7 + [ctypes.c_float] + [L] * 12
+        fn.argtypes = ([P] * 4 + [I] * 9 + [ctypes.c_float] + [L] * 12
                        + [I, I, P])
         fn.restype = ctypes.c_int
     return fn

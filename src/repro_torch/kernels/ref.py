@@ -29,6 +29,19 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgt,bktd->bkgd", p, v.float()).to(q.dtype)
 
 
+def decode_attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: int) -> torch.Tensor:
+    """The same attention over the first ``length`` rows in float64, zeros
+    at ``length == 0``: the yardstick for the rounding of the kernel and of
+    the fp32 plain version.  Returns float64."""
+    if length == 0:
+        return torch.zeros(q.shape, dtype=torch.float64, device=q.device)
+    s = torch.einsum("bkgd,bktd->bkgt", q.double() / math.sqrt(q.shape[-1]),
+                     k[:, :, :length].double())
+    return torch.einsum("bkgt,bktd->bkgd", torch.softmax(s, -1),
+                        v[:, :, :length].double())
+
+
 def tiered_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 

@@ -26,8 +26,12 @@ walks the chunks in reverse from the chunk-entry states the forward saves
   dcum_i = q_i . dq_i - k_i . dk_i  (+ <dS, S_new> at i = L)
   dlog a = reverse cumsum of dcum in the chunk;  da = dlog a / a
 
-with w_j = e^{cum_L - cum_j}.  Decays enter only as e^{cum_i - cum_j} for
-i >= j and as e^{cum_i}, never above 1, so strong decays cannot overflow.
+with w_j = e^{cum_L - cum_j}.  That is the plain version's arithmetic, the
+reference's.  The kernel forms d(log a) from the same terms rearranged so
+that nothing large cancels, in double (``csrc/ssd_scan_bwd.cu``); it needs
+the chunk-entry states but not the final one.  Decays enter only as
+e^{cum_i - cum_j} for i >= j and as e^{cum_i}, never above 1, so strong
+decays cannot overflow.
 A ragged last chunk is masked, nothing is padded; the final state equals
 the reference's, whose wrapper pads with a = 1.
 
@@ -259,7 +263,7 @@ def ssd_scan_bwd(a, k, v, q, dy, states, final, d_final, chunk: int,
              if has_initial else None)
     err = _bind_bwd()(
         a.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
-        dy.data_ptr(), states.data_ptr(), final.data_ptr(),
+        dy.data_ptr(), states.data_ptr(),
         dfin.data_ptr() if dfin is not None else None,
         da.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq.data_ptr(),
         dinit.data_ptr() if dinit is not None else None,
@@ -327,6 +331,6 @@ def _bind_bwd():
     fn = build.load("ssd_scan_bwd").ssd_scan_bwd_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 13 + [L] * 15 + [I] * 6 + [P]
+        fn.argtypes = [P] * 12 + [L] * 15 + [I] * 6 + [P]
         fn.restype = ctypes.c_int
     return fn

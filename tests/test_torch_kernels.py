@@ -119,6 +119,22 @@ def test_decode_attention_reads_the_serving_cache_view():
     np.testing.assert_allclose(as_np(view), as_np(jgold), **tol("float32"))
 
 
+@pytest.mark.parametrize("length", [0, 1, 650])
+def test_decode_attention_f64_yardstick_matches_the_kernel(length):
+    """The float64 attention the card checks hold the kernel against:
+    within fp32 rounding of the Pallas kernel (interpret mode), zeros at
+    length 0 as the kernel gives, float64 out."""
+    B, K, G, D, T = 2, 2, 4, 96, 700
+    qa, ka, va = draws(6, (B, K, G, D), (B, K, T, D), (B, K, T, D))
+    (jq, tq), (jk, tk), (jv, tv) = (both(a, "float32") for a in (qa, ka, va))
+    pallas = ref_ops.decode_attention(jq, jk, jv, length, force_pallas=True,
+                                      interpret=True)
+    out = ref.decode_attention_f64(tq, tk, tv, length)
+    assert out.dtype == torch.float64 and out.shape == tq.shape
+    np.testing.assert_allclose(out.numpy(), as_np(pallas),
+                               **tol("float32"))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,Kd,N", [(256, 512, 256), (300, 700, 500),
                                     (128, 128, 128), (4, 96, 40), (1, 3, 5)])
@@ -142,10 +158,13 @@ def test_tiered_matmul_matches_the_pallas_kernel_in_interpret_mode():
 @pytest.mark.parametrize("batch_heads,length", [
     (4, 0), (4, 1), (4, 160), (4, 1024), (8, 700), (1, 5000), (2, 33)])
 def test_decode_split_covers_the_valid_rows_exactly(batch_heads, length):
-    n_split, rows = port_da._split_rows(batch_heads, length)
-    assert rows % port_da._TILE == 0 and n_split >= 1
-    assert n_split * rows >= length
-    assert length == 0 or (n_split - 1) * rows < length   # no empty split
+    for heads, D, elsize in ((1, 64, 2), (2, 256, 2), (8, 128, 4)):
+        n_split, rows = port_da._split_rows(batch_heads, heads, D, elsize,
+                                            length)
+        # the splits of one (b, k) form one cluster of at most 8 blocks
+        assert 1 <= n_split <= port_da._MAX_SPLIT and rows >= 1
+        assert n_split * rows >= length
+        assert length == 0 or (n_split - 1) * rows < length  # no empty split
 
 
 @pytest.mark.parametrize("M,N,K", [(4, 2048, 2048), (4, 256, 2048),

@@ -176,6 +176,81 @@ def test_ssd_gradient_matches_jax_grad_with_decays_near_one(S, chunk):
     test_ssd_gradient_matches_jax_grad(S, chunk, None, True)
 
 
+class _Wide:
+    """``jax.numpy`` with ``float32`` read as ``float64``: swapped in for
+    the reference module's ``jnp`` for one call, it runs the reference's
+    own ``chunked_linear_scan`` (which casts its inputs to float32) in
+    float64.  The reference's files stay as they are."""
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _ref_dloga(monkeypatch, arrays, chunk, dy, dfin, wide: bool):
+    """d(log a) = da * a of the reference's ``chunked_linear_scan`` for the
+    loss sum(y * dy) + sum(final * dfin), in its own fp32 arithmetic or,
+    with ``wide``, in float64 (inside ``jax.enable_x64`` only)."""
+    a, k, v, q, s0 = arrays
+    if not wide:
+        grad = jax.grad(_ref_scan_loss(chunk, dy, dfin))(
+            *(jnp.asarray(x) for x in (a, k, v, q, s0)))
+        return np.asarray(grad, np.float64) * a
+    with jax.enable_x64(True), monkeypatch.context() as m:
+        m.setattr(ref_mamba, "jnp", _Wide())
+        wide_in = [x.astype(np.float64) for x in (a, k, v, q, s0, dy, dfin)]
+        grad = jax.grad(_ref_scan_loss(chunk, *wide_in[5:]))(
+            *(jnp.asarray(x) for x in wide_in[:5]))
+        assert grad.dtype == jnp.float64
+        return np.asarray(grad) * wide_in[0]
+
+
+def _near_one_case():
+    """S 1024 (four chunks of 256), H 4, N = P = 64, decays near 1, an
+    initial state and a final-state gradient."""
+    B, H, S, N, P = 1, 4, 1024, 64, 64
+    a, k, v, q = scan_inputs(11, B, H, S, N, P, near_one=True)
+    rng = np.random.default_rng(12)
+    s0 = (rng.standard_normal((B, H, N, P)) * 0.3).astype(np.float32)
+    dfin = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    dy = rng.standard_normal((B, H, S, P)).astype(np.float32)
+    return (a, k, v, q, s0), dy, dfin
+
+
+def test_ssd_plain_dloga_near_one_matches_the_reference_float64_gradient(
+        monkeypatch):
+    """With decays near 1, d(log a) sums terms up to a few hundred that
+    cancel to a few hundredths.  The port's plain version differentiated by
+    autograd -- the reference's arithmetic in fp32, the yardstick of the
+    SSD backward kernel on the card (``chip_smoke.py``) -- meets
+    allclose(1e-4) against the reference's gradient computed in float64
+    (0.36 of the bound here, on the CPU)."""
+    arrays, dy, dfin = _near_one_case()
+    gold = _ref_dloga(monkeypatch, arrays, 256, dy, dfin, wide=True)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    y, fin, _ = port_ss._plain_forward(*leaves[:4], 256, leaves[4])
+    loss = ((y * torch.from_numpy(dy)).sum()
+            + (fin * torch.from_numpy(dfin)).sum())
+    da = torch.autograd.grad(loss, leaves[0])[0]
+    got = da.double().numpy() * arrays[0]
+    assert np.abs(gold).max() > 10.0            # large terms, cancelling
+    np.testing.assert_allclose(got, gold, **SSD_TOL)
+
+
+def test_reference_fp32_dloga_near_one_lies_within_1e4_of_its_float64(
+        monkeypatch):
+    """The reference's own fp32 d(log a) against the same computation in
+    float64, on the inputs above: measurably apart (9.8e-5 at most, where
+    |d(log a)| reaches 245: fp32 rounding of terms in the hundreds), and
+    inside allclose(1e-4), at 0.48 of the bound -- so 1e-4 against float64
+    is a bar the reference's arithmetic meets, with no room to spare."""
+    arrays, dy, dfin = _near_one_case()
+    gold = _ref_dloga(monkeypatch, arrays, 256, dy, dfin, wide=True)
+    ref32 = _ref_dloga(monkeypatch, arrays, 256, dy, dfin, wide=False)
+    assert np.abs(ref32 - gold).max() > 1e-6
+    np.testing.assert_allclose(ref32, gold, **SSD_TOL)
+
+
 def test_ssd_bwd_plain_equals_autograd_through_the_plain_forward():
     a, k, v, q = scan_inputs(2, 1, 2, 45, 8, 8)
     t = [torch.from_numpy(x).requires_grad_() for x in (a, k, v, q)]
