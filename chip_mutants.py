@@ -26,7 +26,14 @@ command line run those mutants only.  The mutants:
   past D, which no cp.async wrote, are read from the ring as if copied);
 - SSD-scan backward (the SSD checks with decays near 1):
   ``dloga_inter_chunk_dropped`` (the term q_i . e^{cum_i} S dy_i of
-  d(log a), which carries the state from earlier chunks, is left out).
+  d(log a), which carries the state from earlier chunks, is left out);
+- tiered_matmul (its checks at the serving shapes in both dtypes, the
+  edge cases and those behind a NaN fill of shared memory):
+  ``split_partial_dropped`` (the merge leaves the first K split's partial
+  out), ``empty_barrier_not_awaited`` (the producer refills a ring stage
+  before the consumers release it), ``last_k_tile_skipped`` (the ragged
+  last 64-row stage of K is not read), ``ragged_n_unmasked`` (columns past
+  N of the last tile are written).
 """
 
 import json
@@ -39,6 +46,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLASH = "src/repro_torch/csrc/flash_attention.cu"
 DECODE = "src/repro_torch/csrc/decode_attention.cu"
 SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+MATMUL = "src/repro_torch/csrc/tiered_matmul.cu"
 # name: (source, text, replacement, checks)
 MUTANTS = {
     "corr_dropped": (FLASH, "        corr[h] = exp2f(m[h] * sl2 - base[h]);",
@@ -70,6 +78,18 @@ MUTANTS = {
         SSD_BWD,
         "        const double x = r < Qc ? (double)ecum[r] * qts : 0.0;",
         "        const double x = 0.0;", "ssd_bwd"),
+    "split_partial_dropped": (
+        MATMUL, "      v[p] = p < n_split ?", "      v[p] = 0 < p && p < n_split ?",
+        "matmul"),
+    "empty_barrier_not_awaited": (
+        MATMUL,
+        "        mbar_wait_bounded(&empty[st], ((i / kStages) & 1) ^ 1);\n",
+        "", "matmul"),
+    "last_k_tile_skipped": (
+        MATMUL, "  const int kt_total = (a.K + kBK - 1) / kBK;",
+        "  const int kt_total = a.K / kBK;", "matmul"),
+    "ragged_n_unmasked": (
+        MATMUL, "min(kBN, a.N - n0)", "kBN", "matmul"),
 }
 _HEAD = r'''
 import json, sys, torch
@@ -119,6 +139,20 @@ for r in cs._stale_shared_cases(gen):
 ''',
     # chip_smoke.py's SSD check cases with decays near 1, bar the training
     # shape
+    # chip_smoke.py's tiered_matmul check cases, untimed: the reference
+    # tests' shapes and the serving products in both dtypes, the edge
+    # cases and those behind a NaN fill of shared memory
+    "matmul": _HEAD + r'''
+gemma, zamba = cs._path_products()
+shapes = [(256, 512, 256), (300, 700, 500), (128, 128, 128)]
+shapes += [(4, K, N) for _, K, N in gemma + zamba]
+rows = [cs._matmul_case(None, dt, M, K, N, gen)
+        for dt in (torch.float32, torch.bfloat16) for M, K, N in shapes]
+for r in rows + cs._matmul_edge_cases(gen):
+    print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
+                          err=r["max_abs_err"],
+                          same=r["bit_identical_rerun"])), flush=True)
+''',
     "ssd_bwd": _HEAD + r'''
 for c in [(2, 3, 512, 64, 64, 256, False), (2, 3, 300, 32, 64, 128, False),
           (2, 3, 256, 16, 16, 256, False), (1, 4, 1000, 64, 64, 256, True)]:
@@ -157,6 +191,9 @@ def main() -> int:
         print(json.dumps(dict(mutant=name, source=src, rc=run.returncode,
                               checks=len(rows), failed=len(failed),
                               failing=failed[:6],
+                              error=[line for line in
+                                     run.stderr.splitlines()
+                                     if "Error" in line][-1:],
                               stderr=run.stderr[-300:] if run.returncode
                               else "")), flush=True)
     return 0 if caught == len(names) else 1

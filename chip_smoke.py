@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --compare-matmul DIR
 
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails:
@@ -9,9 +10,10 @@ result line) if any phase fails:
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, all at once, with the ptxas report
-               (decode_attention compiled in every run, so that its report
-               is there to read: no spill, required) and each bf16 flash
-               kernel's HGMMA count (required);
+               (decode_attention and tiered_matmul compiled in every run,
+               so that their reports are there to read: no spill,
+               required) and each bf16 flash kernel's HGMMA count
+               (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
                shapes of gemma-2b and zamba2-1.2b, with kernel / plain /
@@ -19,7 +21,10 @@ result line) if any phase fails:
                kernel); the flash-attention and SSD-scan backward kernels
                against autograd through the plain forward, the SSD one's
                d(log a) against float64 with decays near 1; decode
-               attention also behind a NaN fill of shared memory;
+               attention and tiered_matmul also behind a NaN fill of
+               shared memory; tiered_matmul with the route and plan each
+               shape took, the same bits from a second call, and the
+               wrapper's host time a call;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -37,6 +42,11 @@ result line) if any phase fails:
 10. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
+The serve phases require every product of a decode step to be one launch
+of the tensor-core matmul kernel, and report device operations a step.
+``--compare-matmul DIR`` only times the serving products through this
+checkout's tiered_matmul and through that of the checkout at DIR (see
+``compare_matmul``).
 Times are CUDA-event times over many queued launches (median), each
 behind a device-side sleep so that no host delay falls inside a timed
 pair, with the L2 cache flushed before each launch, since the serving and
@@ -70,7 +80,7 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, fill_shared_memory_nan)
 from repro_torch.kernels.ref import decode_attention_f64  # noqa: E402
-from repro_torch.kernels.tiered_matmul import tiered_matmul_plain  # noqa: E402
+from repro_torch.kernels import tiered_matmul as mm  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state)
@@ -240,16 +250,22 @@ def _sass_counts(name: str) -> dict:
     return counts
 
 
+# kernels whose ptxas report is required in every run, with no spill
+NO_SPILL = ("decode_attention", "tiered_matmul")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    # decode_attention compiled even when its library exists, so that its
-    # ptxas report is read in every run
-    reports = build.build(list(KERNELS), fresh=["decode_attention"])
+    # decode_attention and tiered_matmul compiled even when their
+    # libraries exist, so that their ptxas reports are read in every run
+    reports = build.build(list(KERNELS),
+                          fresh=["decode_attention", "tiered_matmul"])
     for name in KERNELS:
         build.load(name)
     sass = {name: _sass_counts(name) for name in TENSOR_CORE_KERNELS}
-    require(any("Used" in line for line in reports["decode_attention"]),
-            "a ptxas report for decode_attention")
+    for name in NO_SPILL:
+        require(any("Used" in line for line in reports[name]),
+                f"a ptxas report for {name}")
     # spill lines of the ptxas report of each source built in this run
     spills = {name: [line for line in lines if "spill" in line
                      and "0 bytes spill stores, 0 bytes spill loads"
@@ -257,9 +273,9 @@ def phase_build() -> None:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc=build.nvcc_path(), flags=build.NVCC_FLAGS,
               ptxas=reports, spills=spills, tensor_core_sass=sass))
-    require(not spills["decode_attention"],
-            "no decode_attention instantiation spills "
-            f"({spills['decode_attention']})")
+    for name in NO_SPILL:
+        require(not spills[name],
+                f"no {name} instantiation spills ({spills[name]})")
     for name, kernels in TENSOR_CORE_KERNELS.items():
         for k, op in kernels.items():
             found = {f: c for f, c in sass[name].items() if k in f}
@@ -340,24 +356,83 @@ def _stale_shared_cases(gen) -> list:
             for dt, B, K, G, D, length in STALE_SHARED_CASES]
 
 
-def _matmul_case(timer, dtype, M, K, N, gen, name=None):
+def _host_us(fn, n: int = 1000) -> float:
+    """Host time of one call of ``fn``: the host clock over ``n`` calls
+    queued with no synchronisation in between (what a host-bound decode
+    loop pays a call), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
+    """The kernel against its plain version, with the route and plan the
+    wrapper chose; the same inputs again must give the same bits (the K
+    split is merged in a fixed order); with ``stale_nan`` every SM's shared
+    memory is filled with NaN just before the kernel, so a ring slot read
+    before its copy lands shows.  Timed beside the plain version and
+    ``torch.matmul``, with the wrapper's host time a call, unless
+    ``timer`` is None."""
     x = (torch.randn((M, K), generator=gen, device="cuda") * 0.1).to(dtype)
     w = (torch.randn((K, N), generator=gen, device="cuda") * 0.1).to(dtype)
+    if stale_nan:
+        fill_shared_memory_nan(x.device)
     out = ops.tiered_matmul(x, w)
-    plain = tiered_matmul_plain(x, w)
+    again = ops.tiered_matmul(x, w)
+    plain = mm.tiered_matmul_plain(x, w)
     torch.cuda.synchronize()
     err, ok = _compare(out, plain, dtype)
-    size = x.element_size()
-    b_ms, b_by = bound_ms((M * K + K * N + M * N) * size, 2.0 * M * N * K,
-                          dtype)
-    return dict(
+    same = torch.equal(out, again)
+    route = mm.route(x, w)
+    n_split, k_chunk = mm.plan(
+        M, N, K, route, torch.cuda.get_device_properties(0).multi_processor_count)
+    row = dict(
         phase="check", kernel="tiered_matmul", dtype=str(dtype)[6:],
-        shape=dict(M=M, K=K, N=N, product=name), max_abs_err=err,
-        tol=TOL[dtype], ok=ok,
-        ms=timer(lambda: ops.tiered_matmul(x, w)),
-        plain_ms=timer(lambda: tiered_matmul_plain(x, w)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer(lambda: torch.matmul(x, w)))
+        shape=dict(M=M, K=K, N=N, product=name, stale_nan=stale_nan),
+        route=route, plan=dict(n_split=n_split, k_chunk=k_chunk),
+        max_abs_err=err, bit_identical_rerun=same, tol=TOL[dtype],
+        ok=ok and same)
+    if timer is None:
+        return row
+    size = x.element_size()
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        (M * K + K * N + M * N) * size, 2.0 * M * N * K, dtype)
+    row["ms"] = timer(lambda: ops.tiered_matmul(x, w))
+    row["plain_ms"] = timer(lambda: mm.tiered_matmul_plain(x, w))
+    row["library_ms"] = timer(lambda: torch.matmul(x, w))
+    row["host_us"] = _host_us(lambda: ops.tiered_matmul(x, w))
+    return row
+
+
+# tiered_matmul shapes checked untimed: the card tests' smallest and most
+# ragged ones; M = 1, 4, 8 and 9 (one block of 8 rows of x, and two) at
+# gemma-2b's w_down and zamba2-1.2b's in_proj; K not a multiple of the
+# ring's 64-row stage, one of them under one stage, one whose K splits
+# (2560 rows) outgrow the kernel's 2048-k window of x; N a multiple of 8
+# but not of 64.  (M, K, N)
+MATMUL_EDGE_CASES = [
+    (1, 3, 5), (5, 100, 13),
+    *((M, 16384, 2048) for M in (1, 4, 8, 9)),
+    *((M, 2048, 8384) for M in (1, 4, 8, 9)),
+    (4, 2000, 2048), (3, 100, 264), (3, 40, 264), (4, 20000, 2048)]
+# tiered_matmul shapes run behind a NaN fill of shared memory (bf16, the
+# "mma" route): zamba2's in_proj, whose last tile loads one box of its 4,
+# and a ragged K and N.  (M, K, N)
+MATMUL_STALE_CASES = [(4, 2048, 8384), (3, 100, 264)]
+
+
+def _matmul_edge_cases(gen) -> list:
+    rows = [_matmul_case(None, dt, M, K, N, gen)
+            for dt in (torch.float32, torch.bfloat16)
+            for M, K, N in MATMUL_EDGE_CASES]
+    return rows + [_matmul_case(None, torch.bfloat16, M, K, N, gen,
+                                stale_nan=True)
+                   for M, K, N in MATMUL_STALE_CASES]
 
 
 def _visible_pairs(S: int, T: int, causal: bool) -> int:
@@ -599,21 +674,32 @@ def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads) -> dict:
                            tol)[1]))
 
 
+def _path_products():
+    """The serving paths' products, (name, K, N): one gemma-2b layer's 7,
+    and zamba2-1.2b's Mamba-2 in_proj (N = 8384, a multiple of no tile)
+    and out_proj and three of its shared block's."""
+    cfg = get_config("gemma-2b")
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    gemma = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
+             ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
+             ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+    zcfg = get_config("zamba2-1.2b")
+    zd, d_in = zcfg.d_model, zcfg.ssm_expand * zcfg.d_model
+    zproj = 2 * d_in + 2 * zcfg.ssm_state + d_in // zcfg.ssm_head_dim
+    zamba = [("in_proj", zd, zproj), ("out_proj", d_in, zd),
+             ("wq", zd, zd), ("w_gate", zd, zcfg.d_ff),
+             ("w_down", zcfg.d_ff, zd)]
+    return gemma, zamba
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
     gen = torch.Generator(device="cuda").manual_seed(42)
     cfg = get_config("gemma-2b")
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-    products = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
-                ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
-                ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+    hd = cfg.resolved_head_dim
+    products, zamba_products = _path_products()
     zcfg = get_config("zamba2-1.2b")
-    zd, d_in = zcfg.d_model, zcfg.ssm_expand * zcfg.d_model
-    zproj = 2 * d_in + 2 * zcfg.ssm_state + d_in // zcfg.ssm_head_dim
-    zamba_products = [("in_proj", zd, zproj), ("out_proj", d_in, zd),
-                      ("wq", zd, zd), ("w_gate", zd, zcfg.d_ff),
-                      ("w_down", zcfg.d_ff, zd)]
     # the launch floor: an empty kernel, timed as every kernel is
     floor_ms = timer(lambda: torch.cuda._sleep(0))
     rows = []
@@ -670,6 +756,7 @@ def phase_check(timer) -> list:
                                  zcfg.resolved_head_dim, 1024, length, True,
                                  gen, peak=8.0, against="float64"))
     rows += _stale_shared_cases(gen)
+    rows += _matmul_edge_cases(gen)
     for r in rows:
         if r["kernel"] == "decode_attention" and "ms" in r:
             r["launch_floor_ms"] = floor_ms
@@ -993,10 +1080,14 @@ def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
                      for n, (t, c) in top])
 
 
-# the port's serving kernels, by their names in the profile
+# the port's serving kernels, by their names in the profile; the serving
+# products run only the tensor-core kernel, one launch a call: the FFMA
+# route and the old split-K sum kernel must not appear
 SERVE_GROUPS = {
     "decode_attention": ["::decode_kernel<"],
-    "tiered_matmul": ["::mm_kernel<", "::splitk_sum_kernel"],
+    "tiered_matmul": ["::tiered_mma_kernel("],
+    "tiered_matmul_ffma": ["::tiered_ffma_kernel<"],
+    "splitk_sum": ["splitk_sum_kernel"],
 }
 
 
@@ -1070,9 +1161,16 @@ def phase_serve(arch: str, name: str) -> dict:
                      strategy=plan.strategy if plan else None,
                      iterations=rt.stats()["iteration"]),
         sample=outs[0][0, P:P + 16].tolist())
-    res["profile"] = _profile(params, cfg, B, S, 8, min(wall_ms))
+    res["profile"] = prof = _profile(params, cfg, B, S, 8, min(wall_ms))
+    calls = prof["calls_per_step_by_group"]
+    res["device_operations_per_step"] = prof["device_events_per_step"]
     emit(res)
     require(launches == expect, f"launch counts {launches} == {expect}")
+    require(calls.get("tiered_matmul") == expect["tiered_matmul"] / steps
+            and not calls.get("tiered_matmul_ffma")
+            and not calls.get("splitk_sum"),
+            "every product of a decode step is one tensor-core launch "
+            f"({calls})")
     require(res["repeat_identical"], "a repeated request gives the same tokens")
     require(res["logits_finite"] and res["logits_shape"] == [B, cfg.vocab_size],
             "finite logits of shape (batch, vocab)")
@@ -1258,11 +1356,81 @@ def kernel_line(checks, paths) -> dict:
     return {"kernels": out}
 
 
+# Run in a checkout's root: its own chip_smoke.Timer and tiered_matmul
+# wrapper on the serving products at M = 4 in bf16 (argv[1]: JSON list of
+# [name, K, N]); prints one JSON list.
+_COMPARE_SNIPPET = r"""
+import json, sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from repro_torch.kernels import ops
+timer = cs.Timer()
+gen = torch.Generator(device="cuda").manual_seed(42)
+rows = []
+for name, K, N in json.loads(sys.argv[1]):
+    x = (torch.randn((4, K), generator=gen, device="cuda") * 0.1).bfloat16()
+    w = (torch.randn((K, N), generator=gen, device="cuda") * 0.1).bfloat16()
+    ms = timer(lambda: ops.tiered_matmul(x, w))
+    library_ms = timer(lambda: torch.matmul(x, w))
+    ops.tiered_matmul(x, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ops.tiered_matmul(x, w)
+    host_us = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    rows.append(dict(product=name, K=K, N=N, ms=ms, library_ms=library_ms,
+                     host_us=host_us))
+print(json.dumps(rows), flush=True)
+"""
+
+
+def compare_matmul(other: str) -> int:
+    """``python3 chip_smoke.py --compare-matmul DIR``: the bf16 serving
+    products at M = 4 through this checkout's ``tiered_matmul`` and
+    through that of the checkout at DIR (the parent commit, unpacked with
+    ``git archive``), each run in its own process from its checkout's
+    root, in turns DIR, this, this, DIR: kernel ms (that checkout's
+    ``Timer``), ``torch.matmul`` ms beside it, and the wrapper's host us a
+    call (host clock over 1,000 calls, no synchronisation in between).
+    Prints one JSON line a run, then the mean of each checkout's two runs
+    by product."""
+    phase_device()
+    gemma, zamba = _path_products()
+    prods = json.dumps([[n, K, N] for n, K, N in gemma]
+                       + [["zamba2:" + n, K, N] for n, K, N in zamba])
+    runs = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        tree = os.path.abspath(other) if who == "other" else ROOT
+        out = subprocess.run([sys.executable, "-c", _COMPARE_SNIPPET, prods],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-2000:], file=sys.stderr)
+            return 1
+        rows = json.loads(out.stdout.strip().splitlines()[-1])
+        runs[who].append(rows)
+        emit(dict(phase="compare_matmul", checkout=who, tree=tree,
+                  products=rows))
+    summary = []
+    for i, row in enumerate(runs["this"][0]):
+        item = dict(product=row["product"], K=row["K"], N=row["N"])
+        for who, key in (("other", "other"), ("this", "this")):
+            for f in ("ms", "library_ms", "host_us"):
+                item[f"{key}_{f}"] = statistics.mean(
+                    r[i][f] for r in runs[who])
+        summary.append(item)
+    emit(dict(phase="compare_matmul_summary", products=summary))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare-matmul":
+        return compare_matmul(sys.argv[2])
     t0 = time.perf_counter()
     info = phase_device()
     phase_build()

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives for the bf16 flash-attention kernels
-// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu), as inline PTX:
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and the bf16
+// weight stream of csrc/tiered_matmul.cu, as inline PTX:
 // mbarriers, TMA tensor loads and tensor maps, warpgroup MMA (wgmma) and
 // its shared-memory descriptors, register reallocation, and cp.async.
 //
@@ -65,6 +66,29 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(tmap)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of a 2-D tensor map, at element coordinates (c0, c1), into shared
+// memory at dst, under an L2 cache policy (createpolicy); completion
+// counted on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
+                                            uint64_t* bar, int c0, int c1,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(tmap)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// An L2 policy that evicts these lines first: a stream read once keeps
+// the rest of the cache (and leaves dirty lines of others unevicted).
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
 }
 
 // Generic-proxy writes to shared memory visible to wgmma and TMA.
@@ -473,6 +497,26 @@ inline int kv_map(CUtensorMap* map, const void* base, int D, int T, int BK,
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A row-major (rows, cols) bf16 matrix as a 2-D tensor map with boxes of
+// 64 columns x box_rows rows, 128-byte swizzle, zeros outside the matrix.
+// cols must be a multiple of 8 and base 16-byte aligned.
+inline int matrix_map(CUtensorMap* map, const void* base, int cols, int rows,
+                      int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -26,10 +26,23 @@ walks the chunks in reverse from the chunk-entry states the forward saves
   dcum_i = q_i . dq_i - k_i . dk_i  (+ <dS, S_new> at i = L)
   dlog a = reverse cumsum of dcum in the chunk;  da = dlog a / a
 
-with w_j = e^{cum_L - cum_j}.  That is the plain version's arithmetic, the
-reference's.  The kernel forms d(log a) from the same terms rearranged so
-that nothing large cancels, in double (``csrc/ssd_scan_bwd.cu``); it needs
-the chunk-entry states but not the final one.  Decays enter only as
+with w_j = e^{cum_L - cum_j}.  dq, dk, dv and d(initial state) are the
+reference's arithmetic in both versions.  d(log a) is not: with decays
+near 1 the terms of dcum reach a few hundred and cancel to a few
+hundredths, so both the kernel (``csrc/ssd_scan_bwd.cu``) and the plain
+version sum the same terms rearranged so that nothing large cancels, in
+float64:
+
+  dlog a_t = sum_{i>=t} (R_i - C_i + X_i) + e^{cum_L} <dS, S>
+             + sum_{j<t} Y_j
+  R_i = sum_j Z_ij,  C_j = sum_i Z_ij,  Z_ij = M_ij (q_i . k_j)(dy_i . v_j)
+  X_i = e^{cum_i} q_i . (S dy_i),  Y_j = w_j k_j . (dS v_j)
+
+with S the chunk's entry state and dS its exit state's gradient, carried
+in float64 beside the fp32 carry of dk and dv.  Neither needs the final
+state.  The reference's own fp32 arithmetic, autograd through
+:func:`_plain_forward`, stays the yardstick the kernel's d(log a) is held
+against on the card (``chip_smoke.py``).  Decays enter only as
 e^{cum_i - cum_j} for i >= j and as e^{cum_i}, never above 1, so strong
 decays cannot overflow.
 A ragged last chunk is masked, nothing is padded; the final state equals
@@ -118,14 +131,20 @@ def ssd_scan_bwd_plain(a, k, v, q, dy, states, final, d_final, chunk: int,
                        has_initial: bool):
     """The backward kernel's function in plain PyTorch: (da, dk, dv, dq,
     d_initial_state or None) from the forward's inputs, its chunk-entry
-    ``states`` and ``final`` state, and the output gradients ``dy`` and
-    ``d_final`` (None for zero).  dk and dq are per head (B, H, S, N)."""
+    ``states``, and the output gradients ``dy`` and ``d_final`` (None for
+    zero); ``final`` is not read, as the kernel does not read it.  dk and
+    dq are per head (B, H, S, N).
+    dk, dv, dq and d_initial_state are the reference's arithmetic in the
+    inputs' precision; d(log a) is the kernel's rearrangement, in float64
+    (the module's note)."""
     B, H, S = a.shape
     N, P = k.shape[-1], v.shape[-1]
     la = _log_decay(a)
+    la64 = _log_decay(a.double())
     af = _wide(a)
     dS = (torch.zeros((B, H, N, P), dtype=la.dtype, device=a.device)
           if d_final is None else _wide(d_final))
+    dS64 = dS.double()
     da = torch.empty((B, H, S), dtype=la.dtype, device=a.device)
     dk = torch.empty((B, H, S, N), dtype=la.dtype, device=a.device)
     dq = torch.empty_like(dk)
@@ -136,7 +155,6 @@ def ssd_scan_bwd_plain(a, k, v, q, dy, states, final, d_final, chunk: int,
         kc, vc, qc, dyc = (_wide(t[:, :, sl]) for t in (k, v, q, dy))
         cum, M, e, w = _chunk_terms(la[:, :, sl])
         s_prev = states[:, :, c]
-        s_new = states[:, :, c + 1] if c + 1 < nc else final
         D = torch.einsum("bhip,bhjp->bhij", dyc, vc) * M
         Sc = torch.einsum("bhin,bhjn->bhij", qc, kc) * M
         dq_c = (torch.einsum("bhij,bhjn->bhin", D, kc)
@@ -145,16 +163,38 @@ def ssd_scan_bwd_plain(a, k, v, q, dy, states, final, d_final, chunk: int,
                 + w[..., None] * torch.einsum("bhjp,bhnp->bhjn", vc, dS))
         dv_c = (torch.einsum("bhij,bhip->bhjp", Sc, dyc)
                 + w[..., None] * torch.einsum("bhjn,bhnp->bhjp", kc, dS))
-        dcum = (qc * dq_c).sum(-1) - (kc * dk_c).sum(-1)
-        dcum[..., -1] += (dS * s_new).sum((-2, -1))
-        dla = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+        terms64 = _chunk_terms(la64[:, :, sl])
+        dla = _dlog_decay(terms64, *(t.double() for t in (
+            kc, vc, qc, dyc, s_prev)), dS64)
         a_c = af[:, :, sl]
-        da[:, :, sl] = torch.where(a_c > _MIN_A, dla / a_c,
-                                   torch.zeros_like(dla))
+        da[:, :, sl] = torch.where(a_c > _MIN_A, dla.to(la.dtype) / a_c,
+                                   torch.zeros_like(a_c))
         dq[:, :, sl], dk[:, :, sl], dv[:, :, sl] = dq_c, dk_c, dv_c
         dS = (torch.exp(cum[..., -1])[..., None, None] * dS
               + torch.einsum("bhin,bhip->bhnp", qc * e[..., None], dyc))
+        cum64, _, e64, _ = terms64
+        dS64 = (torch.exp(cum64[..., -1])[..., None, None] * dS64
+                + torch.einsum("bhin,bhip->bhnp", qc.double() * e64[..., None],
+                               dyc.double()))
     return da, dk, dv, dq, (dS if has_initial else None)
+
+
+def _dlog_decay(terms, k, v, q, dy, s_prev, dS):
+    """d(log a) over one chunk, all float64, as ``csrc/ssd_scan_bwd.cu``
+    forms it: sum_{i>=t} (R_i - C_i + X_i) + e^{cum_L} <dS, S>
+    + sum_{j<t} Y_j, with S the chunk's entry state, dS its exit state's
+    gradient and ``terms`` the chunk's :func:`_chunk_terms` (the module's
+    note)."""
+    cum, M, e, w = terms
+    Z = (torch.einsum("bhin,bhjn->bhij", q, k)
+         * torch.einsum("bhip,bhjp->bhij", dy, v) * M)
+    X = e * torch.einsum("bhin,bhnp,bhip->bhi", q, s_prev, dy)
+    Y = w * torch.einsum("bhjn,bhnp,bhjp->bhj", k, dS, v)
+    f = Z.sum(-1) - Z.sum(-2) + X
+    after = torch.flip(torch.cumsum(torch.flip(f, [-1]), -1), [-1])
+    before = torch.cumsum(Y, -1) - Y
+    state = torch.exp(cum[..., -1]) * (dS * s_prev).sum((-2, -1))
+    return after + state[..., None] + before
 
 
 # ----------------------------------------------------------------- wrappers

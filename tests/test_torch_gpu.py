@@ -110,9 +110,17 @@ def test_decode_attention_kernel_reads_a_bf16_cache_from_fp32(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(256, 512, 256), (300, 700, 500),
-                                   (128, 128, 128), (4, 2048, 256),
-                                   (4, 16384, 2048), (1, 3, 5), (5, 100, 13)])
+@pytest.mark.parametrize("M,K,N", [
+    (256, 512, 256), (300, 700, 500), (128, 128, 128), (4, 2048, 256),
+    (4, 16384, 2048), (1, 3, 5), (5, 100, 13),
+    # one block of 8 rows of x, and two, at gemma-2b's w_down and zamba2-
+    # 1.2b's in_proj (N = 8384: the last 256-column tile loads one box)
+    (1, 16384, 2048), (8, 16384, 2048), (9, 16384, 2048),
+    (1, 2048, 8384), (4, 2048, 8384), (8, 2048, 8384), (9, 2048, 8384),
+    # K not a multiple of the ring's 64-row stage (one under one stage, one
+    # whose 2560-row K splits outgrow the 2048-k window of x); N a
+    # multiple of 8 but not of 64
+    (4, 2000, 2048), (3, 100, 264), (3, 40, 264), (4, 20000, 2048)])
 def test_tiered_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
     x, w = _randn((M, K), dtype, 6, 0.1), _randn((K, N), dtype, 7, 0.1)
@@ -122,6 +130,36 @@ def test_tiered_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     assert mm.launches == before + 1
     torch.testing.assert_close(out.float(), mm.tiered_matmul_plain(x, w)
                                .float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,M,K,N", [
+    (torch.bfloat16, 4, 16384, 2048), (torch.bfloat16, 4, 2048, 8384),
+    (torch.bfloat16, 9, 2000, 264), (torch.float32, 4, 16384, 2048)])
+def test_tiered_matmul_kernel_gives_the_same_bits_every_run(cuda, dtype, M,
+                                                            K, N):
+    """The K split is merged inside the kernel in a fixed order, not by
+    atomics: the same inputs give the same bits."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x, w = _randn((M, K), dtype, 8, 0.1), _randn((K, N), dtype, 9, 0.1)
+    first = mm.tiered_matmul(x, w)
+    assert all(torch.equal(first, mm.tiered_matmul(x, w)) for _ in range(3))
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 8384), (3, 100, 264)])
+def test_tiered_matmul_kernel_ignores_stale_shared_memory(cuda, M, K, N):
+    """With every SM's shared memory filled with NaN just before the call,
+    a ring stage read before its copy lands, or a slot no copy fills,
+    would show as NaN."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    x = _randn((M, K), torch.bfloat16, 10, 0.1)
+    w = _randn((K, N), torch.bfloat16, 11, 0.1)
+    assert mm.route(x, w) == "mma"
+    da.fill_shared_memory_nan(x.device)
+    out = mm.tiered_matmul(x, w)
+    torch.testing.assert_close(out.float(), mm.tiered_matmul_plain(x, w)
+                               .float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
 
 
 def _objects(core, sizes):

@@ -167,13 +167,52 @@ def test_decode_split_covers_the_valid_rows_exactly(batch_heads, length):
         assert length == 0 or (n_split - 1) * rows < length  # no empty split
 
 
-@pytest.mark.parametrize("M,N,K", [(4, 2048, 2048), (4, 256, 2048),
-                                   (4, 16384, 2048), (4, 2048, 16384),
-                                   (300, 500, 700), (1, 5, 3)])
-def test_matmul_split_covers_k_exactly(M, N, K):
-    k_chunk, n_split = port_mm._split(M, N, K)
-    assert k_chunk % 8 == 0 and n_split * k_chunk >= K
+# the serving paths' products at M = 4: gemma-2b's wq/wo, wk/wv, w_gate/
+# w_up and w_down, zamba2-1.2b's in_proj and out_proj
+MATMUL_PATH_SHAPES = [(4, 2048, 2048), (4, 256, 2048), (4, 16384, 2048),
+                      (4, 2048, 16384), (4, 8384, 2048), (4, 2048, 4096)]
+
+
+@pytest.mark.parametrize("M,N,K", MATMUL_PATH_SHAPES)
+def test_matmul_plan_covers_k_exactly_in_one_wave(M, N, K):
+    """The "mma" route's plan on a 132-SM H100: the K splits are whole
+    64-row stages that cover K with none empty, one cluster of at most 8
+    blocks a 128-column tile, and the grid fits one wave of the blocks the
+    SMs hold (no partial wave), with a block for 95 % of the SMs or as
+    many blocks as 8 splits allow."""
+    n_split, k_chunk = port_mm.plan(M, N, K, "mma", 132)
+    assert 1 <= n_split <= 8
+    assert k_chunk % 64 == 0 and n_split * k_chunk >= K
     assert (n_split - 1) * k_chunk < K                    # no empty split
+    tiles = -(-N // 128) * -(-M // 8)
+    assert tiles * n_split <= 132 * port_mm.blocks_per_sm()
+    assert tiles * n_split >= min(0.95 * 132, tiles * 8)
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 500, 700), (1, 5, 3), (5, 13, 100),
+                                   (4, 2048, 16384)])
+def test_matmul_ffma_plan_covers_k_exactly(M, N, K):
+    n_split, k_chunk = port_mm.plan(M, N, K, "ffma", 132)
+    assert 1 <= n_split <= 8 and k_chunk % 8 == 0
+    assert n_split * k_chunk >= K and (n_split - 1) * k_chunk < K
+
+
+def test_matmul_route_takes_tma_shapes_to_the_tensor_cores():
+    """bf16 with N a multiple of 8 and w 16-byte aligned goes to the "mma"
+    kernel (every serving shape); fp32, N not a multiple of 8, or a w
+    whose address TMA cannot take, to the "ffma" kernel.  Two "mma"
+    blocks fit an SM's shared memory."""
+    bf = torch.bfloat16
+    x = torch.zeros(4, 64, dtype=bf)
+    assert port_mm.route(x, torch.zeros(64, 8384, dtype=bf)) == "mma"
+    assert port_mm.route(x, torch.zeros(64, 264, dtype=bf)) == "mma"
+    assert port_mm.route(x.float(), torch.zeros(64, 2048)) == "ffma"
+    assert port_mm.route(x, torch.zeros(64, 500, dtype=bf)) == "ffma"
+    assert port_mm.route(x, torch.zeros(64, 13, dtype=bf)) == "ffma"
+    w = torch.zeros(64 * 2048 + 8, dtype=bf)
+    assert port_mm.route(x, w[8:].view(64, 2048)) == "mma"
+    assert port_mm.route(x, w[1:1 + 64 * 2048].view(64, 2048)) == "ffma"
+    assert port_mm.blocks_per_sm() == 2
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -205,12 +205,13 @@ def _ref_dloga(monkeypatch, arrays, chunk, dy, dfin, wide: bool):
         return np.asarray(grad) * wide_in[0]
 
 
-def _near_one_case():
+def _near_one_case(seed=11):
     """S 1024 (four chunks of 256), H 4, N = P = 64, decays near 1, an
-    initial state and a final-state gradient."""
+    initial state and a final-state gradient; ``scan_inputs(seed)``, the
+    rest from ``default_rng(seed + 1)``."""
     B, H, S, N, P = 1, 4, 1024, 64, 64
-    a, k, v, q = scan_inputs(11, B, H, S, N, P, near_one=True)
-    rng = np.random.default_rng(12)
+    a, k, v, q = scan_inputs(seed, B, H, S, N, P, near_one=True)
+    rng = np.random.default_rng(seed + 1)
     s0 = (rng.standard_normal((B, H, N, P)) * 0.3).astype(np.float32)
     dfin = rng.standard_normal((B, H, N, P)).astype(np.float32)
     dy = rng.standard_normal((B, H, S, P)).astype(np.float32)
@@ -249,6 +250,29 @@ def test_reference_fp32_dloga_near_one_lies_within_1e4_of_its_float64(
     ref32 = _ref_dloga(monkeypatch, arrays, 256, dy, dfin, wide=False)
     assert np.abs(ref32 - gold).max() > 1e-6
     np.testing.assert_allclose(ref32, gold, **SSD_TOL)
+
+
+@pytest.mark.parametrize("seed", range(11, 19))
+def test_ssd_backward_dloga_near_one_meets_the_reference_float64_gradient(
+        monkeypatch, seed):
+    """The port's CPU training path -- ``ssd_scan`` differentiated through
+    ``SSDScan``, which runs ``ssd_scan_bwd_plain`` -- gives d(log a) within
+    allclose(1e-4) of the reference's gradient computed in float64, at
+    every seed: no less precise than the reference's own fp32 arithmetic,
+    which meets it (``test_reference_fp32_dloga_...`` above).  Formed from
+    q . dq - k . dk in fp32 it missed at seed 15 (1.19 of the bound) and
+    used over 0.8 of it at five other seeds."""
+    arrays, dy, dfin = _near_one_case(seed)
+    gold = _ref_dloga(monkeypatch, arrays, 256, dy, dfin, wide=True)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    y, fin = ops.ssd_scan(*leaves[:4], chunk=256, initial_state=leaves[4])
+    loss = ((y * torch.from_numpy(dy)).sum()
+            + (fin * torch.from_numpy(dfin)).sum())
+    da = torch.autograd.grad(loss, leaves[0])[0]
+    got = da.double().numpy() * arrays[0]
+    assert np.abs(gold).max() > 10.0            # large terms, cancelling
+    np.testing.assert_allclose(got, gold, **SSD_TOL)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 0       # CPU: no kernel
 
 
 def test_ssd_bwd_plain_equals_autograd_through_the_plain_forward():
