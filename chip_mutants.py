@@ -24,9 +24,14 @@ command line run those mutants only.  The mutants:
   read), ``running_max_rescale_dropped`` (acc and l are never rescaled
   when the running max grows), ``uncopied_chunks_read`` (a lane's chunks
   past D, which no cp.async wrote, are read from the ring as if copied);
-- SSD-scan backward (the SSD checks with decays near 1):
-  ``dloga_inter_chunk_dropped`` (the term q_i . e^{cum_i} S dy_i of
-  d(log a), which carries the state from earlier chunks, is left out);
+- SSD-scan backward (the SSD checks with decays near 1, and those behind
+  a NaN fill of shared memory): ``dloga_inter_chunk_dropped`` (the term
+  X_i = e^{cum_i} q_i . S dy_i of d(log a), which carries the state from
+  earlier chunks, is left out), ``chunk_sum_dropped`` (the dS scan leaves
+  the chunk sums U_c out: dS_c = e^{cum_L} dS_{c+1} only),
+  ``tf32_lo_terms_dropped`` (every product in plain TF32, without the lo
+  terms of the 3xTF32 split), ``ring_stage_overwritten`` (the next step's
+  q and dy tiles are copied into the ring stage being read);
 - tiered_matmul (its checks at the serving shapes in both dtypes, the
   edge cases and those behind a NaN fill of shared memory):
   ``split_partial_dropped`` (the merge leaves the first K split's partial
@@ -75,9 +80,17 @@ MUTANTS = {
         DECODE, "      if (li + lanes * j < c16) {", "      if (true) {",
         "decode"),
     "dloga_inter_chunk_dropped": (
-        SSD_BWD,
-        "        const double x = r < Qc ? (double)ecum[r] * qts : 0.0;",
-        "        const double x = 0.0;", "ssd_bwd"),
+        SSD_BWD, "      if (J == 0)\n        f += (double)ecum[I * kT + x]",
+        "      if (false)\n        f += (double)ecum[I * kT + x]", "ssd_bwd"),
+    "chunk_sum_dropped": (
+        SSD_BWD, "        ds = fma(d[j], ds, u[j]);", "        ds = d[j] * ds;",
+        "ssd_bwd"),
+    "tf32_lo_terms_dropped": (
+        SSD_BWD, "constexpr bool kSplit = true;",
+        "constexpr bool kSplit = false;", "ssd_bwd"),
+    "ring_stage_overwritten": (
+        SSD_BWD, "if (more) issue(In, Jn, (step + 1) & 1, Jn != J);",
+        "if (more) issue(In, Jn, step & 1, Jn != J);", "ssd_bwd"),
     "split_partial_dropped": (
         MATMUL, "      v[p] = p < n_split ?", "      v[p] = 0 < p && p < n_split ?",
         "matmul"),
@@ -137,8 +150,6 @@ for r in cs._stale_shared_cases(gen):
     print(json.dumps(dict(case="stale NaN " + str(r["shape"]), ok=r["ok"],
                           err=r["max_abs_err"])), flush=True)
 ''',
-    # chip_smoke.py's SSD check cases with decays near 1, bar the training
-    # shape
     # chip_smoke.py's tiered_matmul check cases, untimed: the reference
     # tests' shapes and the serving products in both dtypes, the edge
     # cases and those behind a NaN fill of shared memory
@@ -153,12 +164,19 @@ for r in rows + cs._matmul_edge_cases(gen):
                           err=r["max_abs_err"],
                           same=r["bit_identical_rerun"])), flush=True)
 ''',
+    # chip_smoke.py's SSD check cases with decays near 1, bar the training
+    # shape, and those behind a NaN fill of shared memory
     "ssd_bwd": _HEAD + r'''
-for c in [(2, 3, 512, 64, 64, 256, False), (2, 3, 300, 32, 64, 128, False),
-          (2, 3, 256, 16, 16, 256, False), (1, 4, 1000, 64, 64, 256, True)]:
-    _, bwd = cs._ssd_case(None, *c, "near1", gen)
-    print(json.dumps(dict(case=c, ok=bwd["ok"], err=bwd["max_abs_err"])),
-          flush=True)
+cases = [(c, False) for c in [
+    (2, 3, 512, 64, 64, 256, False), (2, 3, 300, 32, 64, 128, False),
+    (2, 3, 256, 16, 16, 256, False), (1, 4, 1000, 64, 64, 256, True),
+    (1, 2, 130, 6, 12, 64, True)]]
+cases += [(c, True) for c in cs._ssd_stale_cases()]
+for c, stale in cases:
+    _, bwd = cs._ssd_case(None, *c, "near1", gen, stale_nan=stale)
+    print(json.dumps(dict(case=c, stale_nan=stale, ok=bwd["ok"],
+                          err=bwd["max_abs_err"],
+                          same=bwd["bit_identical_rerun"])), flush=True)
 ''',
 }
 

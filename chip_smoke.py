@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --parent DIR
   python3 chip_smoke.py --compare-matmul DIR
 
 Drives the port's main path on the card and fails (non-zero exit, no
@@ -10,9 +11,10 @@ result line) if any phase fails:
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, all at once, with the ptxas report
-               (decode_attention and tiered_matmul compiled in every run,
-               so that their reports are there to read: no spill,
-               required) and each bf16 flash kernel's HGMMA count
+               (decode_attention, tiered_matmul and ssd_scan_bwd compiled
+               in every run, so that their reports are there to read: no
+               spill, required), each bf16 flash kernel's HGMMA count and
+               the SSD backward's HMMA (TF32) and DMMA (fp64) counts
                (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
@@ -20,11 +22,12 @@ result line) if any phase fails:
                bound / library times and the launch floor (an empty
                kernel); the flash-attention and SSD-scan backward kernels
                against autograd through the plain forward, the SSD one's
-               d(log a) against float64 with decays near 1; decode
-               attention and tiered_matmul also behind a NaN fill of
-               shared memory; tiered_matmul with the route and plan each
-               shape took, the same bits from a second call, and the
-               wrapper's host time a call;
+               d(log a) against float64 with decays near 1 and the same
+               bits from a second call; decode attention, tiered_matmul
+               and the SSD backward also behind a NaN fill of shared
+               memory; tiered_matmul with the route and plan each shape
+               took, the same bits from a second call, and the wrapper's
+               host time a call;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -42,6 +45,8 @@ result line) if any phase fails:
 10. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
+``--parent DIR`` also times the SSD backward of the checkout at DIR (the
+parent commit) in this run and puts it in the kernels line.
 The serve phases require every product of a decode step to be one launch
 of the tensor-core matmul kernel, and report device operations a step.
 ``--compare-matmul DIR`` only times the serving products through this
@@ -93,6 +98,7 @@ MB = 1024 ** 2
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BW = 3.35e12
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_PEAK = 495e12          # dense TF32 on the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 # The backward in fp32: dk and dv sum over G*S stacked rows (16,384 at the
 # training shape) in another order than the plain version.  There the
@@ -220,16 +226,18 @@ def phase_device() -> dict:
     return info
 
 
-# The bf16 flash kernels, by name, and the tensor-core instruction each
-# instantiation must run: wgmma (HGMMA) or mma.sync (HMMA).
+# Kernels, by name, and the tensor-core instruction each instantiation must
+# run: wgmma (HGMMA), mma.sync in bf16 or TF32 (HMMA) or in fp64 (DMMA).
 TENSOR_CORE_KERNELS = {
     "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
-    "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"}}
+    "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"},
+    "ssd_scan_bwd": {"ssd_bwd_chunk_kernel": "HMMA",
+                     "ssd_bwd_sums_kernel": "DMMA"}}
 
 
 def _sass_counts(name: str) -> dict:
-    """HGMMA and HMMA instructions in each bf16 flash kernel of a built
-    library, from ``cuobjdump --dump-sass``."""
+    """HGMMA, HMMA and DMMA instructions in each kernel of a built library
+    named in TENSOR_CORE_KERNELS, from ``cuobjdump --dump-sass``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
@@ -241,25 +249,24 @@ def _sass_counts(name: str) -> dict:
             fn = line.split("Function : ")[1].strip()
             fn = fn if any(k in fn for k in TENSOR_CORE_KERNELS[name]) else None
             if fn:
-                counts[fn] = dict(HGMMA=0, HMMA=0)
+                counts[fn] = dict(HGMMA=0, HMMA=0, DMMA=0)
         elif fn:
-            op = "HGMMA" if "HGMMA" in line else "HMMA" if "HMMA" in line \
-                else None
+            op = next((o for o in ("HGMMA", "HMMA", "DMMA") if o in line),
+                      None)
             if op:
                 counts[fn][op] += 1
     return counts
 
 
 # kernels whose ptxas report is required in every run, with no spill
-NO_SPILL = ("decode_attention", "tiered_matmul")
+NO_SPILL = ("decode_attention", "tiered_matmul", "ssd_scan_bwd")
 
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    # decode_attention and tiered_matmul compiled even when their
-    # libraries exist, so that their ptxas reports are read in every run
-    reports = build.build(list(KERNELS),
-                          fresh=["decode_attention", "tiered_matmul"])
+    # these compiled even when their libraries exist, so that their ptxas
+    # reports are read in every run
+    reports = build.build(list(KERNELS), fresh=list(NO_SPILL))
     for name in KERNELS:
         build.load(name)
     sass = {name: _sass_counts(name) for name in TENSOR_CORE_KERNELS}
@@ -556,13 +563,32 @@ def _ssd_work(B, H, S, N, P, chunk) -> tuple:
     return float(fwd), float(bwd)
 
 
-def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
+def _kernels_a_call(fn, calls: int = 4) -> int:
+    """Kernels that a call of ``fn`` launches, each of another name: the
+    distinct kernel names torch.profiler records over ``calls`` calls (it
+    may drop an event, so counting events would undercount)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return len({e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "emcpy" not in e.name and "emset" not in e.name})
+
+
+def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
+              stale_nan=False) -> list:
     """Forward kernel against the plain forward (y, final state, chunk
     states) and backward kernel against autograd through the plain
     forward, with an initial state and a final-state gradient; in the
     model's layout, (B, S, H, .) seen as (B, H, S, .), k and q broadcast
     over H where ``bcast``; decays ``decay`` ("strong" or "near1", see
-    SSD_DECAY_RANGE).  Float64 columns at the training shape; timed there
+    SSD_DECAY_RANGE).  The backward must give the same bits from a second
+    call; with ``stale_nan`` every SM's shared memory is filled with NaN
+    just before its first call, so a read of a ring slot or tile that no
+    copy wrote shows.  Float64 columns at the training shape; timed there
     with decays near 1 only."""
     r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                    device="cuda")
@@ -581,7 +607,12 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
     a, k, v, q = (t.transpose(1, 2) for t in (a, k, v, q))
     s0, dy, dfin = r(B, H, N, P) * 0.3, r(B, H, S, P), r(B, H, N, P)
     y, fin, states = ssd.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    if stale_nan:
+        fill_shared_memory_nan(a.device)
     grads = ssd.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, True)
+    again = ssd.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, True)
+    same = all(torch.equal(x, x2) for x, x2 in zip(grads, again))
+    del again
     leaves = [t.detach().clone().requires_grad_() for t in (a, k, v, q, s0)]
     py, pfin, pstates = ssd._plain_forward(*leaves[:4], chunk, leaves[4])
     want = torch.autograd.grad([py, pfin], leaves, [dy, dfin])
@@ -598,7 +629,7 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
     g_err = [_compare(g, w, torch.float32, {torch.float32: SSD_TOL})
              for g, w in g_cmp]
     shape = dict(B=B, H=H, S=S, N=N, P=P, chunk=chunk, bcast=bcast,
-                 decay=decay)
+                 decay=decay, stale_nan=stale_nan)
     fwd = dict(phase="check", kernel="ssd_scan", dtype="float32", shape=shape,
                max_abs_err=max(e for e, _ in errs),
                y_final_states_max_abs_err=[e for e, _ in errs],
@@ -607,7 +638,8 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
                shape=shape, max_abs_err=max(e for e, _ in g_err),
                dloga_dk_dv_dq_dinit_max_abs_err=[e for e, _ in g_err],
                dloga_against="float64" if decay == "near1" else "float32",
-               tol=SSD_TOL, ok=all(o for _, o in g_err))
+               bit_identical_rerun=same, tol=SSD_TOL,
+               ok=all(o for _, o in g_err) and same)
     del leaves, py, pfin, pstates, want
     if (B, H, S, N, P, chunk) != SSD_TRAIN_SHAPE:
         return [fwd, bwd]
@@ -628,9 +660,14 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
             torch.float32)
         # backward: reads a, k, q, v, dy and the states; writes da, dv and
         # the per-head dk, dq
-        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-            io + (2 * v.numel() + B * H * (nc + 1) * N * P + a.numel()
-                  + 2 * B * H * S * N) * 4, b_flops, torch.float32)
+        b_bytes = io + (2 * v.numel() + B * H * (nc + 1) * N * P + a.numel()
+                        + 2 * B * H * S * N) * 4
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(b_bytes, b_flops,
+                                                    torch.float32)
+        # ... and the same flops on the tensor cores at fp32 accuracy: three
+        # TF32 products each
+        bwd["bound_tc_ms"] = 3 * b_flops / TF32_PEAK * 1e3
+        bwd["bytes_bound_ms"] = b_bytes / HBM_BW * 1e3
         _, fin0, st0 = ssd.ssd_scan_fwd(a, k, v, q, chunk, save_states=True)
         fwd["ms"] = timer(lambda: ssd.ssd_scan_fwd(a, k, v, q, chunk,
                                                    save_states=True), 20)
@@ -640,9 +677,23 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen) -> list:
             a, k, v, q, dy, st0, fin0, None, chunk, False), 20)
         bwd["plain_ms"] = timer(lambda: ssd.ssd_scan_bwd_plain(
             a, k, v, q, dy, st0, fin0, None, chunk, False), 10)
+        fwd["kernels_a_call"] = _kernels_a_call(
+            lambda: ssd.ssd_scan_fwd(a, k, v, q, chunk, save_states=True))
+        bwd["kernels_a_call"] = _kernels_a_call(lambda: ssd.ssd_scan_bwd(
+            a, k, v, q, dy, st0, fin0, None, chunk, False))
         # no single PyTorch call computes the scan or its gradient
         fwd["library_ms"] = bwd["library_ms"] = None
     return [fwd, bwd]
+
+
+def _ssd_stale_cases() -> list:
+    """SSD shapes checked behind a NaN fill of shared memory: (B, H, S, N,
+    P, chunk, bcast), the reduced config's among them."""
+    zr = get_config("zamba2-1.2b").reduced()
+    return [(2, 3, 300, 32, 64, 128, False), (1, 4, 1000, 64, 64, 256, True),
+            (1, 2, 130, 6, 12, 64, True),
+            (2, zr.ssm_expand * zr.d_model // zr.ssm_head_dim, 64,
+             zr.ssm_state, zr.ssm_head_dim, 64, True)]
 
 
 def _ssd_grads(dtype, a, k, v, q, s0, dy, dfin, chunk) -> list:
@@ -772,9 +823,13 @@ def phase_check(timer) -> list:
                 (2, zr.ssm_expand * zr.d_model // zr.ssm_head_dim, 64,
                  zr.ssm_state, zr.ssm_head_dim, 64, True),  # reduced config
                 (1, 4, 1000, 64, 64, 256, True),      # ragged last chunk
+                # N and P no multiple of 4: the 4-byte copies
+                (1, 2, 130, 6, 12, 64, True),
                 SSD_TRAIN_SHAPE + (True,)):
             rows += _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen)
             torch.cuda.empty_cache()
+    for case in _ssd_stale_cases():     # the backward's rows only
+        rows += _ssd_case(None, *case, "near1", gen, stale_nan=True)[1:]
     for r in rows:
         emit(r)
     bad = [r for r in rows if not r["ok"]]
@@ -1250,7 +1305,8 @@ TRAIN_GROUPS = {
     "flash_attention_bwd_dkdv": ["dkdv_wgmma", "dkdv_kernel",
                                  "split_sum_kernel"],
     "ssd_scan": ["ssd_fwd_kernel"],
-    "ssd_scan_bwd": ["ssd_bwd_kernel"],
+    "ssd_scan_bwd": ["ssd_bwd_sums_kernel", "ssd_bwd_carry_kernel",
+                     "ssd_bwd_chunk_kernel"],
     "cublas_products": ["nvjet", "gemm", "cutlass", "sm90_xmma"],
 }
 
@@ -1290,7 +1346,7 @@ def _train_profile(cfg, tcfg, opt, wall_ms: float) -> dict:
     return prof
 
 
-def kernel_line(checks, paths) -> dict:
+def kernel_line(checks, paths, parent_ms=None) -> dict:
     """Each kernel's numbers at its path's shapes: decode attention one
     bf16 call at batch 4, length 160 over the (4, 1024, 1, 256) cache view;
     tiered_matmul one gemma-2b layer's 7 bf16 products at M = 4, summed;
@@ -1298,7 +1354,9 @@ def kernel_line(checks, paths) -> dict:
     training shape; the SSD scan and its gradient one fp32 call at the
     zamba2 training shape.  Launches are the sum over the main paths
     (``paths``: the serve and train rows of both models), each counted from
-    0 just before its path ran; ``launches_by_path`` splits them."""
+    0 just before its path ran; ``launches_by_path`` splits them.
+    ``parent_ms``: the SSD backward of the checkout given with ``--parent``,
+    timed in this run."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
                 and cond(r["dtype"], r["shape"])]
@@ -1350,6 +1408,12 @@ def kernel_line(checks, paths) -> dict:
         row["bound_by"] = rows[0]["bound_by"]
         if name == "decode_attention":
             row["launch_floor_ms"] = rows[0]["launch_floor_ms"]
+        if name.startswith("ssd_scan"):
+            row["kernels_a_call"] = rows[0]["kernels_a_call"]
+        if name == "ssd_scan_bwd":
+            row["bound_tc_ms"] = rows[0]["bound_tc_ms"]
+            row["bytes_bound_ms"] = rows[0]["bytes_bound_ms"]
+            row["parent_ms"] = parent_ms
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
         out.append(row)
@@ -1424,6 +1488,43 @@ def compare_matmul(other: str) -> int:
     return 0
 
 
+# Run in a checkout's root: its own chip_smoke.Timer and SSD backward at
+# the zamba2 training shape, decays near 1; prints one JSON object.
+_SSD_PARENT_SNIPPET = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from repro_torch.kernels import ssd_scan as ss
+B, H, S, N, P, chunk = cs.SSD_TRAIN_SHAPE
+gen = torch.Generator(device="cuda").manual_seed(42)
+r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+lo, hi = cs.SSD_DECAY_RANGE
+a = torch.exp(-(lo + (hi - lo) * torch.rand((B, S, H), generator=gen,
+                                            device="cuda"))).transpose(1, 2)
+k, q = (r(B, S, N)[:, :, None].expand(B, S, H, N).transpose(1, 2) * 0.3
+        for _ in range(2))
+v, dy = (r(B, S, H, P) * 0.3).transpose(1, 2), r(B, H, S, P)
+y, fin, st = ss.ssd_scan_fwd(a, k, v, q, chunk, save_states=True)
+ms = cs.Timer()(lambda: ss.ssd_scan_bwd(a, k, v, q, dy, st, fin, None, chunk,
+                                        False), 20)
+print(json.dumps(dict(ms=ms)), flush=True)
+"""
+
+
+def parent_ssd_bwd_ms(other: str) -> float:
+    """``--parent DIR``: the SSD backward of the checkout at DIR (the parent
+    commit, unpacked with ``git archive``) at the zamba2 training shape,
+    timed by that checkout's ``Timer`` in its own process on this card."""
+    out = subprocess.run([sys.executable, "-c", _SSD_PARENT_SNIPPET],
+                         cwd=os.path.abspath(other), capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"the parent's SSD backward: {out.stderr[-2000:]}")
+    ms = json.loads(out.stdout.strip().splitlines()[-1])["ms"]
+    emit(dict(phase="parent_ssd_scan_bwd", tree=other, ms=ms))
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1431,11 +1532,14 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--compare-matmul":
         return compare_matmul(sys.argv[2])
+    parent = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--parent" \
+        else None
     t0 = time.perf_counter()
     info = phase_device()
     phase_build()
     timer = Timer()
     checks = phase_check(timer)
+    parent_ms = parent_ssd_bwd_ms(parent) if parent else None
     phase_runtime(timer)
     phase_parity("gemma-2b")
     phase_parity("zamba2-1.2b")
@@ -1443,7 +1547,7 @@ def main() -> int:
              phase_train("gemma-2b", 2048, "train"),
              phase_serve("zamba2-1.2b", "serve_zamba2"),
              phase_train("zamba2-1.2b", 4096, "train_zamba2")]
-    line = kernel_line(checks, paths)
+    line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,8 @@ inside the chunk,
 
 (L the chunk's last position).  The TPU kernel is forward only: JAX
 differentiates the pure-JAX scan.  Here the gradient is a kernel too; it
-walks the chunks in reverse from the chunk-entry states the forward saves
-(not recomputed) and carries dS:
+starts from the chunk-entry states the forward saves (not recomputed) and
+carries dS:
 
   dq_i = sum_{j<=i} e^{cum_i-cum_j} (dy_i . v_j) k_j + e^{cum_i} S dy_i
   dk_j = sum_{i>=j} e^{cum_i-cum_j} (dy_i . v_j) q_i + w_j dS v_j
@@ -26,7 +26,7 @@ walks the chunks in reverse from the chunk-entry states the forward saves
   dcum_i = q_i . dq_i - k_i . dk_i  (+ <dS, S_new> at i = L)
   dlog a = reverse cumsum of dcum in the chunk;  da = dlog a / a
 
-with w_j = e^{cum_L - cum_j}.  dq, dk, dv and d(initial state) are the
+with w_j = e^{cum_L - cum_j}.  The products of dq, dk and dv are the
 reference's arithmetic in both versions.  d(log a) is not: with decays
 near 1 the terms of dcum reach a few hundred and cancel to a few
 hundredths, so both the kernel (``csrc/ssd_scan_bwd.cu``) and the plain
@@ -38,13 +38,16 @@ float64:
   R_i = sum_j Z_ij,  C_j = sum_i Z_ij,  Z_ij = M_ij (q_i . k_j)(dy_i . v_j)
   X_i = e^{cum_i} q_i . (S dy_i),  Y_j = w_j k_j . (dS v_j)
 
-with S the chunk's entry state and dS its exit state's gradient, carried
-in float64 beside the fp32 carry of dk and dv.  Neither needs the final
-state.  The reference's own fp32 arithmetic, autograd through
-:func:`_plain_forward`, stays the yardstick the kernel's d(log a) is held
-against on the card (``chip_smoke.py``).  Decays enter only as
-e^{cum_i - cum_j} for i >= j and as e^{cum_i}, never above 1, so strong
-decays cannot overflow.
+with S the chunk's entry state and dS its exit state's gradient.  Only
+dS runs from chunk to chunk, so both versions form it first, in float64:
+each chunk's sum U_c = sum_i e^{cum_i} q_i dy_i^T, then the scan dS_prev =
+e^{cum_L} dS + U; the rest of every chunk is local (the kernel runs the
+chunks in parallel).  dk and dv take dS rounded to the inputs' precision.
+Neither version needs the final state.  The reference's own fp32
+arithmetic, autograd through :func:`_plain_forward`, stays the yardstick
+the kernel's d(log a) is held against on the card (``chip_smoke.py``).
+Decays enter only as e^{cum_i - cum_j} for i >= j and as e^{cum_i}, never
+above 1, so strong decays cannot overflow.
 A ragged last chunk is masked, nothing is padded; the final state equals
 the reference's, whose wrapper pads with a = 1.
 
@@ -134,49 +137,71 @@ def ssd_scan_bwd_plain(a, k, v, q, dy, states, final, d_final, chunk: int,
     ``states``, and the output gradients ``dy`` and ``d_final`` (None for
     zero); ``final`` is not read, as the kernel does not read it.  dk and
     dq are per head (B, H, S, N).
-    dk, dv, dq and d_initial_state are the reference's arithmetic in the
-    inputs' precision; d(log a) is the kernel's rearrangement, in float64
-    (the module's note)."""
+    In the kernel's order: each chunk's exit gradient dS first, in float64
+    from the chunk sums (:func:`_exit_grads`), then every chunk on its own.
+    dq and the products of dk and dv are the reference's arithmetic in the
+    inputs' precision, dk and dv with dS rounded to it; d(log a) is the
+    kernel's rearrangement, in float64 (the module's note)."""
     B, H, S = a.shape
     N, P = k.shape[-1], v.shape[-1]
     la = _log_decay(a)
     la64 = _log_decay(a.double())
     af = _wide(a)
-    dS = (torch.zeros((B, H, N, P), dtype=la.dtype, device=a.device)
-          if d_final is None else _wide(d_final))
-    dS64 = dS.double()
+    exits, d_init = _exit_grads(la64, q, dy, d_final, chunk)
     da = torch.empty((B, H, S), dtype=la.dtype, device=a.device)
     dk = torch.empty((B, H, S, N), dtype=la.dtype, device=a.device)
     dq = torch.empty_like(dk)
     dv = torch.empty((B, H, S, P), dtype=la.dtype, device=a.device)
-    nc = states.shape[2]
-    for c in reversed(range(nc)):
+    for c in range(states.shape[2]):
         sl = slice(c * chunk, min((c + 1) * chunk, S))
         kc, vc, qc, dyc = (_wide(t[:, :, sl]) for t in (k, v, q, dy))
-        cum, M, e, w = _chunk_terms(la[:, :, sl])
-        s_prev = states[:, :, c]
+        _, M, e, w = _chunk_terms(la[:, :, sl])
+        s_prev, dS64 = states[:, :, c], exits[:, :, c]
+        dS = dS64.to(la.dtype)
         D = torch.einsum("bhip,bhjp->bhij", dyc, vc) * M
         Sc = torch.einsum("bhin,bhjn->bhij", qc, kc) * M
-        dq_c = (torch.einsum("bhij,bhjn->bhin", D, kc)
-                + e[..., None] * torch.einsum("bhip,bhnp->bhin", dyc, s_prev))
-        dk_c = (torch.einsum("bhij,bhin->bhjn", D, qc)
-                + w[..., None] * torch.einsum("bhjp,bhnp->bhjn", vc, dS))
-        dv_c = (torch.einsum("bhij,bhip->bhjp", Sc, dyc)
-                + w[..., None] * torch.einsum("bhjn,bhnp->bhjp", kc, dS))
-        terms64 = _chunk_terms(la64[:, :, sl])
-        dla = _dlog_decay(terms64, *(t.double() for t in (
-            kc, vc, qc, dyc, s_prev)), dS64)
+        dq[:, :, sl] = (torch.einsum("bhij,bhjn->bhin", D, kc)
+                        + e[..., None]
+                        * torch.einsum("bhip,bhnp->bhin", dyc, s_prev))
+        dk[:, :, sl] = (torch.einsum("bhij,bhin->bhjn", D, qc)
+                        + w[..., None]
+                        * torch.einsum("bhjp,bhnp->bhjn", vc, dS))
+        dv[:, :, sl] = (torch.einsum("bhij,bhip->bhjp", Sc, dyc)
+                        + w[..., None]
+                        * torch.einsum("bhjn,bhnp->bhjp", kc, dS))
+        dla = _dlog_decay(_chunk_terms(la64[:, :, sl]),
+                          *(t.double() for t in (kc, vc, qc, dyc, s_prev)),
+                          dS64)
         a_c = af[:, :, sl]
         da[:, :, sl] = torch.where(a_c > _MIN_A, dla.to(la.dtype) / a_c,
                                    torch.zeros_like(a_c))
-        dq[:, :, sl], dk[:, :, sl], dv[:, :, sl] = dq_c, dk_c, dv_c
-        dS = (torch.exp(cum[..., -1])[..., None, None] * dS
-              + torch.einsum("bhin,bhip->bhnp", qc * e[..., None], dyc))
-        cum64, _, e64, _ = terms64
-        dS64 = (torch.exp(cum64[..., -1])[..., None, None] * dS64
-                + torch.einsum("bhin,bhip->bhnp", qc.double() * e64[..., None],
-                               dyc.double()))
-    return da, dk, dv, dq, (dS if has_initial else None)
+    return da, dk, dv, dq, (d_init.to(la.dtype) if has_initial else None)
+
+
+def _exit_grads(la64, q, dy, d_final, chunk: int):
+    """Every chunk's exit-state gradient and the initial state's, in
+    float64, in the kernel's order (``csrc/ssd_scan_bwd.cu``): the chunk
+    sums U_c = sum_i e^{cum_i} q_i dy_i^T, each on its own, then the scan
+    dS_c = e^{cum_L,c+1} dS_{c+1} + U_{c+1} from dS = ``d_final`` (zero for
+    None) after the last chunk.  ``la64``: log a (B, H, S) in float64.
+    Returns (dS (B, H, nc, N, P), d_initial (B, H, N, P)), d_initial =
+    e^{cum_L,0} dS_0 + U_0."""
+    S = la64.shape[-1]
+    sums, decays = [], []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(s0 + chunk, S))
+        cum = torch.cumsum(la64[:, :, sl], dim=-1)
+        sums.append(torch.einsum("bhin,bhip->bhnp",
+                                 q[:, :, sl].double()
+                                 * torch.exp(cum)[..., None],
+                                 dy[:, :, sl].double()))
+        decays.append(torch.exp(cum[..., -1])[..., None, None])
+    dS = torch.zeros_like(sums[0]) if d_final is None else d_final.double()
+    exits = [None] * len(sums)
+    for c in reversed(range(len(sums))):
+        exits[c] = dS
+        dS = decays[c] * dS + sums[c]
+    return torch.stack(exits, dim=2), dS
 
 
 def _dlog_decay(terms, k, v, q, dy, s_prev, dS):
@@ -301,12 +326,15 @@ def ssd_scan_bwd(a, k, v, q, dy, states, final, d_final, chunk: int,
     dv = torch.empty((B, H, S, P), dtype=torch.float32, device=a.device)
     dinit = (torch.empty((B, H, N, P), dtype=torch.float32, device=a.device)
              if has_initial else None)
+    # each chunk's sum U_c, then its exit gradient dS_c, and e^{cum_L}
+    work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float64,
+                       device=a.device)
     err = _bind_bwd()(
         a.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
         dy.data_ptr(), states.data_ptr(),
         dfin.data_ptr() if dfin is not None else None,
         da.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq.data_ptr(),
-        dinit.data_ptr() if dinit is not None else None,
+        dinit.data_ptr() if dinit is not None else None, work.data_ptr(),
         *_strides(a), *_strides(k), *_strides(v), *_strides(q),
         *_strides(dy), B, H, S, N, P, chunk,
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -371,6 +399,6 @@ def _bind_bwd():
     fn = build.load("ssd_scan_bwd").ssd_scan_bwd_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 12 + [L] * 15 + [I] * 6 + [P]
+        fn.argtypes = [P] * 13 + [L] * 15 + [I] * 6 + [P]
         fn.restype = ctypes.c_int
     return fn

@@ -469,6 +469,34 @@ def test_ssd_scan_bwd_dloga_at_the_training_shape_beats_the_plain_version(
                                atol=SSD_TOL)
 
 
+@pytest.mark.parametrize("shape", ["train", "ragged", "reduced"])
+def test_ssd_scan_bwd_gives_the_same_bits_on_every_call(cuda, shape):
+    """Two calls of the backward on the same inputs give the same bits: no
+    atomics and a fixed order of every sum, in each of its three launches.
+    zamba2-1.2b's training shape, the ragged (1, 4, 1000) one and the
+    reduced config's chunks of 64; k and q broadcast over H, decays near
+    1, an initial state and a final-state gradient."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    if shape == "reduced":
+        from repro_torch.configs import get_config
+        zr = get_config("zamba2-1.2b").reduced()
+        B, H, S, N, P, chunk = (2, zr.ssm_expand * zr.d_model
+                                // zr.ssm_head_dim, 64, zr.ssm_state,
+                                zr.ssm_head_dim, 64)
+    else:
+        B, H, S, N, P, chunk = ((2, 64, 4096, 64, 64, 256) if shape == "train"
+                                else (1, 4, 1000, 64, 64, 256))
+    a, k, v, q = _ssd_inputs(B, H, S, N, P, 23, True, near1=True)
+    s0 = _randn((B, H, N, P), torch.float32, 24, 0.3)
+    dy = _randn((B, H, S, P), torch.float32, 25)
+    dfin = _randn((B, H, N, P), torch.float32, 26)
+    y, fin, states = ss.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    first = ss.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, True)
+    second = ss.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, True)
+    for name, x, y2 in zip(("da", "dk", "dv", "dq", "dinit"), first, second):
+        assert torch.equal(x, y2), name
+
+
 def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     ss = importlib.import_module("repro_torch.kernels.ssd_scan")
     a, k, v, q = _ssd_inputs(1, 2, 40, 16, 16, 0, False)

@@ -289,6 +289,38 @@ def test_ssd_bwd_plain_equals_autograd_through_the_plain_forward():
     _compare_grads(got, want, a)
 
 
+@pytest.mark.parametrize("S,chunk", [(300, 128), (100, 256), (256, 64)])
+@pytest.mark.parametrize("with_final", [False, True])
+def test_ssd_exit_grads_from_chunk_sums_equal_the_serial_carry(S, chunk,
+                                                               with_final):
+    """``_exit_grads`` forms every chunk's exit-state gradient from the
+    chunk sums U_c and the scan over chunks, as the kernel does: in float64
+    it equals, to 1e-12, the gradient carried position by position, G <-
+    a_t (G + q_t dy_t^T), read at each chunk's last position (before its
+    own output) and after the first position (d_initial).  A ragged last
+    chunk, one chunk, and chunks of 64; with and without d(final state)."""
+    B, H, N, P = 2, 3, 8, 6
+    a, k, v, q = (torch.from_numpy(x).double()
+                  for x in scan_inputs(5, B, H, S, N, P, near_one=True))
+    rng = np.random.default_rng(6)
+    dy = torch.from_numpy(rng.standard_normal((B, H, S, P)))
+    dfin = torch.from_numpy(rng.standard_normal((B, H, N, P)))
+    exits, d_init = port_ss._exit_grads(
+        torch.log(a), q, dy, dfin if with_final else None, chunk)
+    G = dfin.clone() if with_final else torch.zeros(B, H, N, P,
+                                                    dtype=torch.float64)
+    want = {}
+    for t in reversed(range(S)):
+        if t % chunk == chunk - 1 or t == S - 1:
+            want[t // chunk] = G.clone()
+        G = a[:, :, t, None, None] * (
+            G + torch.einsum("bhn,bhp->bhnp", q[:, :, t], dy[:, :, t]))
+    assert exits.shape == (B, H, -(-S // chunk), N, P)
+    for c, w in want.items():
+        torch.testing.assert_close(exits[:, :, c], w, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(d_init, G, rtol=1e-12, atol=1e-12)
+
+
 def _f64_scan_loss(a, k, v, q, dy):
     """The step-by-step recurrence in float64 (no chunks, no exponentials
     of differences)."""
