@@ -32,6 +32,15 @@ command line run those mutants only.  The mutants:
   ``tf32_lo_terms_dropped`` (every product in plain TF32, without the lo
   terms of the 3xTF32 split), ``ring_stage_overwritten`` (the next step's
   q and dy tiles are copied into the ring stage being read);
+- SSD-scan forward (the SSD checks with decays near 1, and those behind a
+  NaN fill of shared memory): ``fwd_carry_decay_dropped`` (the state scan
+  adds each chunk's sum without decaying the state: S <- S + dS_c),
+  ``fwd_tf32_lo_terms_dropped`` (every product in plain TF32),
+  ``fwd_inter_chunk_dropped`` (the term e^{cum_i} q_i S_c, which carries
+  the state from earlier chunks, is left out), ``fwd_tile_slot_overwritten``
+  (the tiles of row tiles 2 and 3 are copied into the slots of row tiles
+  0 and 1, which warps may be reading, and their own slots are never
+  written; each tile's barrier still completes, so nothing hangs);
 - tiered_matmul (its checks at the serving shapes in both dtypes, the
   edge cases and those behind a NaN fill of shared memory):
   ``split_partial_dropped`` (the merge leaves the first K split's partial
@@ -50,6 +59,7 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLASH = "src/repro_torch/csrc/flash_attention.cu"
 DECODE = "src/repro_torch/csrc/decode_attention.cu"
+SSD_FWD = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 MATMUL = "src/repro_torch/csrc/tiered_matmul.cu"
 # name: (source, text, replacement, checks)
@@ -91,6 +101,19 @@ MUTANTS = {
     "ring_stage_overwritten": (
         SSD_BWD, "if (more) issue(In, Jn, (step + 1) & 1, Jn != J);",
         "if (more) issue(In, Jn, step & 1, Jn != J);", "ssd_bwd"),
+    "fwd_carry_decay_dropped": (
+        SSD_FWD, "        s = fma(d[j], s, u[j]);", "        s += u[j];",
+        "ssd_fwd"),
+    "fwd_tf32_lo_terms_dropped": (
+        SSD_FWD, "constexpr bool kSplit = true;",
+        "constexpr bool kSplit = false;", "ssd_fwd"),
+    "fwd_inter_chunk_dropped": (
+        SSD_FWD, "    tile_product<false>(y, q_, m0, S_, kN8, 8);",
+        "    zero_blk(y);", "ssd_fwd"),
+    "fwd_tile_slot_overwritten": (
+        SSD_FWD, "copy_tile(tiles + slot * kTile, src,",
+        "copy_tile(tiles + (slot > slot_v(1) ? slot - 6 : slot) * kTile, src,",
+        "ssd_fwd"),
     "split_partial_dropped": (
         MATMUL, "      v[p] = p < n_split ?", "      v[p] = 0 < p && p < n_split ?",
         "matmul"),
@@ -110,6 +133,18 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(42)
+'''
+_SSD = r'''
+cases = [(c, False) for c in [
+    (2, 3, 512, 64, 64, 256, False), (2, 3, 300, 32, 64, 128, False),
+    (2, 3, 256, 16, 16, 256, False), (1, 4, 1000, 64, 64, 256, True),
+    (1, 2, 130, 6, 12, 64, True)]]
+cases += [(c, True) for c in cs._ssd_stale_cases()]
+for c, stale in cases:
+    row = cs._ssd_case(None, *c, "near1", gen, stale_nan=stale)[ROW]
+    print(json.dumps(dict(case=c, stale_nan=stale, ok=row["ok"],
+                          err=row["max_abs_err"],
+                          same=row["bit_identical_rerun"])), flush=True)
 '''
 CHECKS = {
     # chip_smoke.py's bf16 flash check cases, bar the training shape
@@ -165,19 +200,10 @@ for r in rows + cs._matmul_edge_cases(gen):
                           same=r["bit_identical_rerun"])), flush=True)
 ''',
     # chip_smoke.py's SSD check cases with decays near 1, bar the training
-    # shape, and those behind a NaN fill of shared memory
-    "ssd_bwd": _HEAD + r'''
-cases = [(c, False) for c in [
-    (2, 3, 512, 64, 64, 256, False), (2, 3, 300, 32, 64, 128, False),
-    (2, 3, 256, 16, 16, 256, False), (1, 4, 1000, 64, 64, 256, True),
-    (1, 2, 130, 6, 12, 64, True)]]
-cases += [(c, True) for c in cs._ssd_stale_cases()]
-for c, stale in cases:
-    _, bwd = cs._ssd_case(None, *c, "near1", gen, stale_nan=stale)
-    print(json.dumps(dict(case=c, stale_nan=stale, ok=bwd["ok"],
-                          err=bwd["max_abs_err"],
-                          same=bwd["bit_identical_rerun"])), flush=True)
-''',
+    # shape, and those behind a NaN fill of shared memory: the backward's
+    # rows ("ssd_bwd") or the forward's ("ssd_fwd")
+    "ssd_bwd": _HEAD + _SSD.replace("ROW", "1"),
+    "ssd_fwd": _HEAD + _SSD.replace("ROW", "0"),
 }
 
 

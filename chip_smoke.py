@@ -11,10 +11,11 @@ result line) if any phase fails:
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, all at once, with the ptxas report
-               (decode_attention, tiered_matmul and ssd_scan_bwd compiled
-               in every run, so that their reports are there to read: no
-               spill, required), each bf16 flash kernel's HGMMA count and
-               the SSD backward's HMMA (TF32) and DMMA (fp64) counts
+               (decode_attention, tiered_matmul, ssd_scan and ssd_scan_bwd
+               compiled in every run, so that their reports are there to
+               read: no spill, required), each bf16 flash kernel's HGMMA
+               count and the SSD forward's and backward's HMMA (TF32, the
+               chunk kernels) and DMMA (fp64, the sums kernels) counts
                (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
@@ -22,12 +23,13 @@ result line) if any phase fails:
                bound / library times and the launch floor (an empty
                kernel); the flash-attention and SSD-scan backward kernels
                against autograd through the plain forward, the SSD one's
-               d(log a) against float64 with decays near 1 and the same
-               bits from a second call; decode attention, tiered_matmul
-               and the SSD backward also behind a NaN fill of shared
-               memory; tiered_matmul with the route and plan each shape
-               took, the same bits from a second call, and the wrapper's
-               host time a call;
+               d(log a) against float64 with decays near 1; the SSD
+               forward and backward each the same bits from a second call;
+               decode attention, tiered_matmul and the SSD forward and
+               backward also behind a NaN fill of shared memory;
+               tiered_matmul with the route and plan each shape took, the
+               same bits from a second call, and the wrapper's host time a
+               call;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -45,8 +47,8 @@ result line) if any phase fails:
 10. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
-``--parent DIR`` also times the SSD backward of the checkout at DIR (the
-parent commit) in this run and puts it in the kernels line.
+``--parent DIR`` also times the SSD forward and backward of the checkout
+at DIR (the parent commit) in this run and puts them in the kernels line.
 The serve phases require every product of a decode step to be one launch
 of the tensor-core matmul kernel, and report device operations a step.
 ``--compare-matmul DIR`` only times the serving products through this
@@ -231,6 +233,8 @@ def phase_device() -> dict:
 TENSOR_CORE_KERNELS = {
     "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
     "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"},
+    "ssd_scan": {"ssd_fwd_chunk_kernel": "HMMA",
+                 "ssd_fwd_sums_kernel": "DMMA"},
     "ssd_scan_bwd": {"ssd_bwd_chunk_kernel": "HMMA",
                      "ssd_bwd_sums_kernel": "DMMA"}}
 
@@ -259,7 +263,7 @@ def _sass_counts(name: str) -> dict:
 
 
 # kernels whose ptxas report is required in every run, with no spill
-NO_SPILL = ("decode_attention", "tiered_matmul", "ssd_scan_bwd")
+NO_SPILL = ("decode_attention", "tiered_matmul", "ssd_scan", "ssd_scan_bwd")
 
 
 def phase_build() -> None:
@@ -563,19 +567,28 @@ def _ssd_work(B, H, S, N, P, chunk) -> tuple:
     return float(fwd), float(bwd)
 
 
-def _kernels_a_call(fn, calls: int = 4) -> int:
+def _kernels_a_call(fn, calls: int = 4) -> tuple:
     """Kernels that a call of ``fn`` launches, each of another name: the
     distinct kernel names torch.profiler records over ``calls`` calls (it
-    may drop an event, so counting events would undercount)."""
+    may drop an event, so counting events would undercount); and each
+    kernel's device ms a call, by name (back to back, no L2 flush)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return len({e.name for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "emcpy" not in e.name and "emset" not in e.name})
+    names, ms = set(), {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or "emcpy" in e.name or "emset" in e.name):
+            continue
+        names.add(e.name)
+        short = next((w for w in e.name.replace("(", " ").replace(
+            ":", " ").split() if w.endswith("_kernel")), e.name[:48])
+        ms[short] = ms.get(short, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / calls
+    return len(names), ms
 
 
 def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
@@ -585,11 +598,13 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     forward, with an initial state and a final-state gradient; in the
     model's layout, (B, S, H, .) seen as (B, H, S, .), k and q broadcast
     over H where ``bcast``; decays ``decay`` ("strong" or "near1", see
-    SSD_DECAY_RANGE).  The backward must give the same bits from a second
+    SSD_DECAY_RANGE).  Each kernel must give the same bits from a second
     call; with ``stale_nan`` every SM's shared memory is filled with NaN
-    just before its first call, so a read of a ring slot or tile that no
-    copy wrote shows.  Float64 columns at the training shape; timed there
-    with decays near 1 only."""
+    just before each kernel's first call, so a read of a ring slot or tile
+    that no copy wrote shows.  The forward's states and final state are
+    also set beside the float64 model of its order (``_entry_states``), as
+    are the fp32 plain version's.  Float64 columns of the backward at the
+    training shape; timed there with decays near 1 only."""
     r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                    device="cuda")
     if decay == "near1":
@@ -606,7 +621,13 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     v = r(B, S, H, P) * 0.3
     a, k, v, q = (t.transpose(1, 2) for t in (a, k, v, q))
     s0, dy, dfin = r(B, H, N, P) * 0.3, r(B, H, S, P), r(B, H, N, P)
+    if stale_nan:
+        fill_shared_memory_nan(a.device)
     y, fin, states = ssd.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    again = ssd.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    fwd_same = all(torch.equal(x, x2) for x, x2 in zip((y, fin, states),
+                                                       again))
+    del again
     if stale_nan:
         fill_shared_memory_nan(a.device)
     grads = ssd.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, True)
@@ -619,6 +640,11 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     torch.cuda.synchronize()
     errs = [_compare(x, w.detach(), torch.float32, {torch.float32: SSD_TOL})
             for x, w in ((y, py), (fin, pfin), (states, pstates))]
+    st64, fin64 = ssd._entry_states(ssd._log_decay(a.double()), k, v, chunk,
+                                    s0)
+    f64 = [[(x.double() - w).abs().max().item()
+            for x, w in ((st, st64), (fi, fin64))]
+           for st, fi in ((states, fin), (pstates.detach(), pfin.detach()))]
     # d(log a) = da * a for the decays; dk, dq per head
     g_cmp = [(g * a if i == 0 else g, w * a if i == 0 else w)
              for i, (g, w) in enumerate(zip(grads, want))]
@@ -633,7 +659,9 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     fwd = dict(phase="check", kernel="ssd_scan", dtype="float32", shape=shape,
                max_abs_err=max(e for e, _ in errs),
                y_final_states_max_abs_err=[e for e, _ in errs],
-               tol=SSD_TOL, ok=all(o for _, o in errs))
+               states_final_vs_f64=dict(kernel=f64[0], plain=f64[1]),
+               bit_identical_rerun=fwd_same, tol=SSD_TOL,
+               ok=all(o for _, o in errs) and fwd_same)
     bwd = dict(phase="check", kernel="ssd_scan_bwd", dtype="float32",
                shape=shape, max_abs_err=max(e for e, _ in g_err),
                dloga_dk_dv_dq_dinit_max_abs_err=[e for e, _ in g_err],
@@ -655,9 +683,11 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
         io = (a.numel() + v.numel()) * 4 + kq
         f_flops, b_flops = _ssd_work(B, H, S, N, P, chunk)
         # forward: reads a, k, q, v; writes y, the final and chunk states
-        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-            io + (v.numel() + B * H * (nc + 1) * N * P) * 4, f_flops,
-            torch.float32)
+        f_bytes = io + (v.numel() + B * H * (nc + 1) * N * P) * 4
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(f_bytes, f_flops,
+                                                    torch.float32)
+        fwd["bound_tc_ms"] = 3 * f_flops / TF32_PEAK * 1e3
+        fwd["bytes_bound_ms"] = f_bytes / HBM_BW * 1e3
         # backward: reads a, k, q, v, dy and the states; writes da, dv and
         # the per-head dk, dq
         b_bytes = io + (2 * v.numel() + B * H * (nc + 1) * N * P + a.numel()
@@ -677,10 +707,11 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
             a, k, v, q, dy, st0, fin0, None, chunk, False), 20)
         bwd["plain_ms"] = timer(lambda: ssd.ssd_scan_bwd_plain(
             a, k, v, q, dy, st0, fin0, None, chunk, False), 10)
-        fwd["kernels_a_call"] = _kernels_a_call(
+        fwd["kernels_a_call"], fwd["kernel_ms_a_call"] = _kernels_a_call(
             lambda: ssd.ssd_scan_fwd(a, k, v, q, chunk, save_states=True))
-        bwd["kernels_a_call"] = _kernels_a_call(lambda: ssd.ssd_scan_bwd(
-            a, k, v, q, dy, st0, fin0, None, chunk, False))
+        bwd["kernels_a_call"], bwd["kernel_ms_a_call"] = _kernels_a_call(
+            lambda: ssd.ssd_scan_bwd(a, k, v, q, dy, st0, fin0, None, chunk,
+                                     False))
         # no single PyTorch call computes the scan or its gradient
         fwd["library_ms"] = bwd["library_ms"] = None
     return [fwd, bwd]
@@ -828,8 +859,8 @@ def phase_check(timer) -> list:
                 SSD_TRAIN_SHAPE + (True,)):
             rows += _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen)
             torch.cuda.empty_cache()
-    for case in _ssd_stale_cases():     # the backward's rows only
-        rows += _ssd_case(None, *case, "near1", gen, stale_nan=True)[1:]
+    for case in _ssd_stale_cases():
+        rows += _ssd_case(None, *case, "near1", gen, stale_nan=True)
     for r in rows:
         emit(r)
     bad = [r for r in rows if not r["ok"]]
@@ -1304,7 +1335,8 @@ TRAIN_GROUPS = {
     "flash_attention_bwd_dq": ["dq_wgmma", "dq_kernel", "delta_kernel"],
     "flash_attention_bwd_dkdv": ["dkdv_wgmma", "dkdv_kernel",
                                  "split_sum_kernel"],
-    "ssd_scan": ["ssd_fwd_kernel"],
+    "ssd_scan": ["ssd_fwd_sums_kernel", "ssd_fwd_carry_kernel",
+                 "ssd_fwd_chunk_kernel"],
     "ssd_scan_bwd": ["ssd_bwd_sums_kernel", "ssd_bwd_carry_kernel",
                      "ssd_bwd_chunk_kernel"],
     "cublas_products": ["nvjet", "gemm", "cutlass", "sm90_xmma"],
@@ -1355,8 +1387,9 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
     zamba2 training shape.  Launches are the sum over the main paths
     (``paths``: the serve and train rows of both models), each counted from
     0 just before its path ran; ``launches_by_path`` splits them.
-    ``parent_ms``: the SSD backward of the checkout given with ``--parent``,
-    timed in this run."""
+    ``parent_ms``: the SSD forward and backward of the checkout given with
+    ``--parent`` ({"ssd_scan": ms, "ssd_scan_bwd": ms}), timed in this
+    run."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
                 and cond(r["dtype"], r["shape"])]
@@ -1410,10 +1443,10 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
             row["launch_floor_ms"] = rows[0]["launch_floor_ms"]
         if name.startswith("ssd_scan"):
             row["kernels_a_call"] = rows[0]["kernels_a_call"]
-        if name == "ssd_scan_bwd":
+            row["kernel_ms_a_call"] = rows[0]["kernel_ms_a_call"]
             row["bound_tc_ms"] = rows[0]["bound_tc_ms"]
             row["bytes_bound_ms"] = rows[0]["bytes_bound_ms"]
-            row["parent_ms"] = parent_ms
+            row["parent_ms"] = (parent_ms or {}).get(name)
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
         out.append(row)
@@ -1488,8 +1521,9 @@ def compare_matmul(other: str) -> int:
     return 0
 
 
-# Run in a checkout's root: its own chip_smoke.Timer and SSD backward at
-# the zamba2 training shape, decays near 1; prints one JSON object.
+# Run in a checkout's root: its own chip_smoke.Timer, SSD forward and SSD
+# backward at the zamba2 training shape, decays near 1; prints one JSON
+# object.
 _SSD_PARENT_SNIPPET = r"""
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -1505,23 +1539,26 @@ k, q = (r(B, S, N)[:, :, None].expand(B, S, H, N).transpose(1, 2) * 0.3
         for _ in range(2))
 v, dy = (r(B, S, H, P) * 0.3).transpose(1, 2), r(B, H, S, P)
 y, fin, st = ss.ssd_scan_fwd(a, k, v, q, chunk, save_states=True)
-ms = cs.Timer()(lambda: ss.ssd_scan_bwd(a, k, v, q, dy, st, fin, None, chunk,
-                                        False), 20)
-print(json.dumps(dict(ms=ms)), flush=True)
+timer = cs.Timer()
+fwd = timer(lambda: ss.ssd_scan_fwd(a, k, v, q, chunk, save_states=True), 20)
+bwd = timer(lambda: ss.ssd_scan_bwd(a, k, v, q, dy, st, fin, None, chunk,
+                                    False), 20)
+print(json.dumps(dict(ssd_scan=fwd, ssd_scan_bwd=bwd)), flush=True)
 """
 
 
-def parent_ssd_bwd_ms(other: str) -> float:
-    """``--parent DIR``: the SSD backward of the checkout at DIR (the parent
-    commit, unpacked with ``git archive``) at the zamba2 training shape,
-    timed by that checkout's ``Timer`` in its own process on this card."""
+def parent_ssd_ms(other: str) -> dict:
+    """``--parent DIR``: the SSD forward and backward of the checkout at DIR
+    (the parent commit, unpacked with ``git archive``) at the zamba2
+    training shape, timed by that checkout's ``Timer`` in its own process
+    on this card: {"ssd_scan": ms, "ssd_scan_bwd": ms}."""
     out = subprocess.run([sys.executable, "-c", _SSD_PARENT_SNIPPET],
                          cwd=os.path.abspath(other), capture_output=True,
                          text=True, timeout=900)
     if out.returncode != 0:
-        raise RuntimeError(f"the parent's SSD backward: {out.stderr[-2000:]}")
-    ms = json.loads(out.stdout.strip().splitlines()[-1])["ms"]
-    emit(dict(phase="parent_ssd_scan_bwd", tree=other, ms=ms))
+        raise RuntimeError(f"the parent's SSD scan: {out.stderr[-2000:]}")
+    ms = json.loads(out.stdout.strip().splitlines()[-1])
+    emit(dict(phase="parent_ssd_scan", tree=other, ms=ms))
     return ms
 
 
@@ -1539,7 +1576,7 @@ def main() -> int:
     phase_build()
     timer = Timer()
     checks = phase_check(timer)
-    parent_ms = parent_ssd_bwd_ms(parent) if parent else None
+    parent_ms = parent_ssd_ms(parent) if parent else None
     phase_runtime(timer)
     phase_parity("gemma-2b")
     phase_parity("zamba2-1.2b")

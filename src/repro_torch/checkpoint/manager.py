@@ -153,8 +153,8 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restore onto shardings waits for the port of distributed/ "
-                "(ROADMAP.md, queue 1, item 4: 'distributed/, "
-                "launch/dryrun.py and roofline.py')")
+                "(ROADMAP.md, queue 1: 'distributed/, launch/dryrun.py and "
+                "roofline.py')")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

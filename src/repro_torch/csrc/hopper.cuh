@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives for the bf16 flash-attention kernels
-// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and the bf16
-// weight stream of csrc/tiered_matmul.cu, as inline PTX:
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu), the bf16
+// weight stream of csrc/tiered_matmul.cu and the SSD-scan tiles
+// (csrc/ssd_mma.cuh), as inline PTX:
 // mbarriers, TMA tensor loads and tensor maps, warpgroup MMA (wgmma) and
 // its shared-memory descriptors, register reallocation, and cp.async.
 //
@@ -52,6 +53,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
       "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
       :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// mbar_wait, but a phase that has not completed after ~4 s traps (a launch
+// failure rather than a hung card)
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 33)) __trap();
 }
 
 // ---------------------------------------------------------------- TMA
@@ -436,6 +458,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+// Arrive on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival is not counted in advance (.noinc), so the barrier is
+// initialised with one count for each thread that arrives this way.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -5,189 +5,424 @@
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py (`ssd_scan`, :60;
 // `_ssd_kernel`, :23).  There one grid step is one (batch, head, chunk) and
 // the chunk axis runs in order with the (N, P) state in VMEM scratch.  Per
-// chunk of Q positions, with cum = cumsum(log a):
-//   y_i   = sum_{j<=i} (q_i . k_j) e^{cum_i - cum_j} v_j + e^{cum_i} q_i S
-//   S_new = e^{cum_L} S + sum_j e^{cum_L - cum_j} k_j v_j^T
+// chunk of Q positions, with cum = cumsum(log a) restarting in each chunk,
+// L its last position and w_j = e^{cum_L - cum_j}:
+//   y_i     = sum_{j<=i} (q_i . k_j) e^{cum_i - cum_j} v_j + e^{cum_i} q_i S_c
+//   S_{c+1} = e^{cum_L} S_c + dS_c,   dS_c = sum_j w_j k_j v_j^T
+// Only the state runs from chunk to chunk; once S_c is known the rest of a
+// chunk is local.
 //
 // What bounds it on this card: operations.  B*H*S*(Q*(N+P) + 4*N*P) useful
 // flops (the causal half of the two Q x Q products, the inter-chunk term
 // and the state update): 25.8 GFLOP at the zamba2 training shape (B 2,
-// H 64, S 4096, N = P = 64, Q 256), 0.385 ms at the fp32 FMA rate, against
-// ~0.16 ms to move its bytes.
+// H 64, S 4096, N = P = 64, Q 256), 0.385 ms at the fp32 FMA rate, 0.156 ms
+// at the rate of fp32-accurate tensor-core products (three TF32 products
+// each, 495 TFLOP/s), against 0.093 ms to move its bytes.
 //
-// What the design does about it:
-// * One block per (b, h, 64-column tile of P).  The columns of S are
-//   independent (S[:, p] depends only on v[:, p]), so P splits across
-//   blocks with no reduction: B*H*ceil(P/64) blocks, 128 at the training
-//   shape.  A loop inside the block walks the chunks in order; it takes the
-//   place of the TPU's sequential grid axis.  The state tile stays in
-//   registers (and a shared-memory copy for the inter-chunk product).
-// * The chunk's k and v stay in shared memory; the Q x Q intra-chunk term
-//   is cut into 64 x 64 sub-tiles (an fp32 Q x Q tile at Q = 256 would be
-//   256 KB, over the 227 KB a block may use), and sub-tiles above the
-//   diagonal are skipped.
-// * e^{cum_i - cum_j} is computed only where i >= j (the reference forms it
-//   everywhere and masks after, which overflows where decays are strong);
-//   every decay factor is <= 1.
+// What the design does about it: three launches, parallel over chunks.
+// * ssd_fwd_sums_kernel, one block per (b, h, chunk, 64 columns of P):
+//   dS_c in fp64 on DMMA (m16n8k8, 2 * N * 64 * Q flops), with cum and w in
+//   double, and e^{cum_L} (csrc/ssd_mma.cuh, outer_sum_f64).
+// * ssd_fwd_carry_kernel: the state scan in fp64, one thread per (b, h, n,
+//   p), from the initial state or zeros; it writes each chunk's entry state
+//   in fp32, (B, H, nc, N, P) contiguous (the layout csrc/ssd_scan_bwd.cu
+//   reads), and the final state.  The fp64 sums and scan keep the states
+//   exact to fp32: the backward's d(log a) reads them (X_i and <dS, S>).
+// * ssd_fwd_chunk_kernel, one block of 8 warps per (b, h, chunk, 64
+//   columns of P), 2,048 blocks at the training shape.  The chunk's q, k
+//   and v (up to 4 + 4 + 4 tiles of 64 rows) and S_c are copied into
+//   swizzled shared-memory tiles by cp.async, all issued at the start,
+//   each tile with its own mbarrier (cp.async.mbarrier.arrive), so a warp
+//   waits only for the tiles it reads next and the later tiles' loads
+//   overlap the products.  Warp w owns the 16-row slabs w and 15 - w of the
+//   chunk (equal work: slab s needs 2s + 2 column groups of 8), and no warp
+//   waits on another: per slab it forms e^{cum_i} q_i S_c, then for each
+//   column tile J at or below the diagonal the scores q_i k_j^T (16 x 64),
+//   masked by e^{cum_i - cum_j}, and multiplies them by v_J straight from
+//   registers (the scores' accumulator fragment is the next product's
+//   operand fragment), skipping the column groups above the diagonal.
+// * The mask costs one exponential per element if formed as it stands.  A
+//   column j in a 16-column group before the slab's takes it as e^{cum_i -
+//   e_G} e^{e_G - cum_j}, e_G = cum at the group's last column, both
+//   factors <= 1: the second once per block per column, the first once per
+//   row and group.  Only the slab's own 16 x 16 block forms e^{cum_i -
+//   cum_j} itself, where i >= j: no factor exceeds 1, so strong decays
+//   cannot overflow (the reference forms it everywhere and masks after).
+// * Every product on mma.sync in TF32 (HMMA), each operand split in hi + lo
+//   and three products summed (hi hi + hi lo + lo hi), accurate to fp32
+//   (plain TF32 misses the 1e-4 tolerance).  Each product is summed from
+//   zero and added in fp32, so that the tensor cores' truncating adds run
+//   over one product only.
 // * A ragged last chunk is masked in the kernel; nothing is padded.  The
 //   final state equals the padded reference's (padding has a = 1, k = 0).
-// * fp32 FFMA throughout (no TF32), so fp32 meets the reference's 1e-4.
 // * Inputs are read through element strides, so the model's k and q, one
 //   (B, S, N) tensor broadcast over H (stride 0), and its (B, S, H, .)
 //   layout need no copy; y is written in v's layout.
-// * With `states` non-null the entry state of every chunk is written,
-//   (B, H, nc, N, P), for the backward kernel (csrc/ssd_scan_bwd.cu).
-// Simple first: no tensor cores, no TMA, one block per SM.
+// * No atomics, a fixed order of every sum: the same bits on every run.
 
-#include "ssd_tiles.cuh"
+#include "ssd_mma.cuh"
 
 namespace {
 
 using namespace ssd;
+
+// 3xTF32: each product also takes its lo terms; false leaves plain TF32
+constexpr bool kSplit = true;
+constexpr int kWarps = kThreads / 32;
 
 struct FwdArgs {
   const float* a; const float* k; const float* v; const float* q;
   const float* init;       // (B, H, N, P) contiguous, or null for zeros
   float* y;
   float* final_state;      // (B, H, N, P) contiguous
-  float* states;           // (B, H, nc, N, P) contiguous, or null
+  float* states;           // (B, H, nc, N, P) contiguous: entry states
+  double* sums;            // (B, H, nc, N, P): dS_c
+  double* decay;           // (B, H, nc): e^{cum_L} of each chunk
   View va, vk, vv, vq, vy;
   int H, S, N, P, Q, nc;
+  bool wk, wv, wq, wy;     // 16-byte copies (k, v, q), 8-byte stores (y)
 };
 
-int fwd_smem_bytes(int Q) {
-  const int Qp = (Q + kT - 1) / kT * kT;
-  return 4 * (2 * Qp * kLd + 3 * kT * kLd + 2 * kMaxQ + 8);
-}
-
-__global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(FwdArgs a) {
+// ---------------------------------------------------------------- sums
+// dS_c = sum_j e^{cum_L - cum_j} k_j v_j^T (N x 64 columns of P) in fp64
+// on DMMA, and e^{cum_L}, for one (b, h, chunk, column tile).
+__global__ void __launch_bounds__(kThreads) ssd_fwd_sums_kernel(FwdArgs a) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int Qp = (a.Q + kT - 1) / kT * kT;
-  float* ks = smem;                  // Qp x kLd: the chunk's k (then k * w)
-  float* vs = ks + Qp * kLd;         // Qp x kLd: its v, this block's columns
-  float* qs = vs + Qp * kLd;         // 64 x kLd: one row tile of q
-  float* ps = qs + kT * kLd;         // 64 x kLd: decay-masked scores
-  float* ss = ps + kT * kLd;         // 64 x kLd: the entry state (N x PT)
-  float* cum = ss + kT * kLd;        // kMaxQ
-  float* wdec = cum + kMaxQ;         // kMaxQ: e^{cum_L - cum_j}
-  float* scratch = wdec + kMaxQ;     // 8
+  float* kt = reinterpret_cast<float*>(smem4);   // k[2], v[2]: a ring of
+  float* vt = kt + 2 * kTile;                    // 64-row tiles
+  double* vd = reinterpret_cast<double*>(vt + 2 * kTile);  // v in fp64
+  double* w = vd + kT * kLdD;                    // cum, then w
+  double* scratch = w + kMaxQ;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const long long bhc = blockIdx.x, bh = bhc / a.nc;
+  const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
   const int p0 = blockIdx.y * kT, PT = min(kT, a.P - p0);
-  const float* A = a.a + b * a.va.b + h * a.va.h;
-  const float* K = a.k + b * a.vk.b + h * a.vk.h;
-  const float* V = a.v + b * a.vv.b + h * a.vv.h + p0;
-  const float* Qm = a.q + b * a.vq.b + h * a.vq.h;
-  float* Y = a.y + b * a.vy.b + h * a.vy.h + p0;
-  const long long NP = (long long)a.N * a.P;
+  const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
+  const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
+  const Rows64 x{a.k + b * a.vk.b + h * a.vk.h + s0 * a.vk.s, a.vk.s, a.N,
+                 a.wk};
+  const Rows64 y{a.v + b * a.vv.b + h * a.vv.h + s0 * a.vv.s + p0, a.vv.s,
+                 PT, a.wv};
+  issue_rows(kt, vt, x, y, 0, Qc);
+  const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
+  w[tid] = cs;
+  __syncthreads();
+  const double cL = w[Qc - 1];
+  __syncthreads();
+  w[tid] = tid < Qc ? exp(cL - cs) : 0.0;
+  if (tid == Qc - 1 && blockIdx.y == 0) a.decay[bhc] = exp(cs);
+  outer_sum_f64(kt, vt, vd, w, x, y, Qc,
+                a.sums + bhc * a.N * a.P + p0, a.P, a.N, PT);
+}
 
-  // the state: this thread's S[n = row_of(i)][p = col_of(j)]
-  float st[4][4];
+// ---------------------------------------------------------------- carry
+// The state scan, first chunk to last, one thread per (b, h, n, p), in
+// fp64: each chunk's entry state is written in fp32, then S <- e^{cum_L} S
+// + dS_c.  Eight chunks' loads are in flight at a time.
+__global__ void __launch_bounds__(kThreads) ssd_fwd_carry_kernel(FwdArgs a,
+                                                                 int blocks) {
+  const long long bh = blockIdx.x / blocks;
+  const int NP = a.N * a.P;
+  const int i = (blockIdx.x % blocks) * kThreads + threadIdx.x;
+  if (i >= NP) return;
+  double s = a.init != nullptr ? (double)a.init[bh * NP + i] : 0.0;
+  const double* sums = a.sums + bh * a.nc * NP + i;
+  const double* dec = a.decay + bh * a.nc;
+  float* st = a.states + bh * a.nc * NP + i;
+  for (int c0 = 0; c0 < a.nc; c0 += 8) {
+    double u[8], d[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j)
+      if (c0 + j < a.nc) {
+        u[j] = sums[(long long)(c0 + j) * NP];
+        d[j] = dec[c0 + j];
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = row_of(i), p = col_of(j);
-      st[i][j] = (a.init != nullptr && n < a.N && p < PT)
-                 ? a.init[bh * NP + (long long)n * a.P + p0 + p] : 0.f;
+    for (int j = 0; j < 8; ++j)
+      if (c0 + j < a.nc) {
+        st[(long long)(c0 + j) * NP] = (float)s;
+        s = fma(d[j], s, u[j]);
+      }
+  }
+  a.final_state[bh * NP + i] = (float)s;
+}
+
+// ---------------------------------------------------------------- chunk
+
+// A warp's 16 x 64 block of a product, as 8 fragments of 16 x 8 (mma.sync
+// m16n8k8: rows g, g+8 and columns 2t, 2t+1 of each, g = lane / 4, t =
+// lane % 4).  The depth order within a step puts depth 2t in column
+// (row) t of the A (B) fragment and 2t+1 in t+4 (csrc/ssd_mma.cuh), so a
+// thread's accumulator elements (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+// of a column group are its A fragment of the next product over those 8
+// depths.
+using Blk = float[8][4];
+
+__device__ __forceinline__ void zero_blk(Blk& x) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) (&x[0][0])[i] = 0.f;
+}
+
+// The A fragment of rows m0.. of a tile along the row, depths k.. (two
+// 8-byte reads), split in TF32 hi + lo.
+__device__ __forceinline__ void a_frag(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                       const float* tile, int m0, int k) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 x = *reinterpret_cast<const float2*>(
+        tile + tile_at(m0 + g + 8 * h, k + 2 * t));
+    split_tf32<false>(x.x, ah[h], al[h]);          // depth 2t
+    split_tf32<false>(x.y, ah[h + 2], al[h + 2]);  // depth 2t+1
+  }
+}
+
+// acc[ni] += A B for the column groups ni < nt at depth step k: B(x, c) is
+// tile element (c, x) (kAlongRow: k for the scores, one 8-byte read) or
+// (x, c) (S and v: rows 2t and 2t+1).  The products are interleaved so
+// that no accumulator waits on its last product.
+template <bool kAlongRow>
+__device__ __forceinline__ void mma_step(Blk& acc, const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const float* tile, int k, int nt) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+    if (ni < nt) {
+      float2 x;
+      if (kAlongRow) {
+        x = *reinterpret_cast<const float2*>(
+            tile + tile_at(8 * ni + g, k + 2 * t));
+      } else {
+        x = make_float2(tile[tile_at(k + 2 * t, 8 * ni + g)],
+                        tile[tile_at(k + 2 * t + 1, 8 * ni + g)]);
+      }
+      split_tf32<false>(x.x, bh[ni][0], bl[ni][0]);
+      split_tf32<false>(x.y, bh[ni][1], bl[ni][1]);
     }
+  if (kSplit) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+      if (ni < nt) mma_tf32(acc[ni], al, bh[ni]);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+      if (ni < nt) mma_tf32(acc[ni], ah, bl[ni]);
+  }
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+    if (ni < nt) mma_tf32(acc[ni], ah, bh[ni]);
+}
 
-  for (int c = 0; c < a.nc; ++c) {
-    const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = row_of(i), p = col_of(j);
-        ss[n * kLd + p] = st[i][j];
-        if (a.states != nullptr && n < a.N && p < PT)
-          a.states[(bh * (long long)a.nc + c) * NP + (long long)n * a.P
-                   + p0 + p] = st[i][j];
-      }
-    // cumulative log-decays; positions past Qc keep cum_L (a = 1)
-    const float cs = block_scan(log_decay(A + s0 * a.va.s, a.va.s, tid, Qc),
-                                scratch);
-    cum[tid] = cs;
-    load_rows(ks, K + s0 * a.vk.s, a.vk.s, Qp, Qc, a.N);
-    load_rows(vs, V + s0 * a.vv.s, a.vv.s, Qp, Qc, PT);
-    __syncthreads();
-    const float cL = cum[Qc - 1];
-    if (tid < Qc) wdec[tid] = expf(cL - cum[tid]);
+// acc = A B over depth [0, K) (a multiple of 8), A rows m0.. of tile `a`,
+// column groups < nt; summed from zero.
+template <bool kAlongRow>
+__device__ __forceinline__ void tile_product(Blk& acc, const float* a, int m0,
+                                             const float* b, int K, int nt) {
+  zero_blk(acc);
+#pragma unroll 1
+  for (int k = 0; k < K; k += 8) {
+    uint32_t ah[4], al[4];
+    a_frag(ah, al, a, m0, k);
+    mma_step<kAlongRow>(acc, ah, al, b, k, nt);
+  }
+}
 
-    const int n_tiles = (Qc + kT - 1) / kT;
-    for (int I = 0; I < n_tiles; ++I) {
-      load_rows(qs, Qm + (s0 + I * kT) * a.vq.s, a.vq.s, kT,
-                min(kT, Qc - I * kT), a.N);
-      __syncthreads();
-      float y[4][4], t[4][4];
-      zero(y);
-      zero(t);
-      for (int J = 0; J <= I; ++J) {
-        float sc[4][4];
-        zero(sc);
-        mm_nt(sc, qs, ks + J * kT * kLd, kT);          // q_I k_J^T over n
+// acc = Pm V: Pm the masked scores in registers (column groups < nt, the
+// depth), V the rows of tile v; summed from zero.
+__device__ __forceinline__ void score_product(Blk& acc, const Blk& pm,
+                                              const float* v, int nt) {
+  zero_blk(acc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = I * kT + row_of(i), col = J * kT + col_of(j);
-            ps[row_of(i) * kLd + col_of(j)] =
-                (col <= r && r < Qc) ? sc[i][j] * expf(cum[r] - cum[col])
-                                     : 0.f;
-          }
-        __syncthreads();
-        mm_nn(y, ps, vs + J * kT * kLd, kT);            // scores @ v_J
-        __syncthreads();
-      }
-      mm_nn(t, qs, ss, kT);                               // q_I @ S
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = I * kT + row_of(i);
-        if (r >= Qc) continue;
-        const float e = expf(cum[r]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (col_of(j) < PT)
-            Y[(s0 + r) * a.vy.s + col_of(j)] = y[i][j] + e * t[i][j];
-      }
-      __syncthreads();
+  for (int ni = 0; ni < 8; ++ni)
+    if (ni < nt) {
+      uint32_t ah[4], al[4];
+      split_tf32<false>(pm[ni][0], ah[0], al[0]);   // row g, depth 2t
+      split_tf32<false>(pm[ni][2], ah[1], al[1]);   // row g+8, depth 2t
+      split_tf32<false>(pm[ni][1], ah[2], al[2]);   // row g, depth 2t+1
+      split_tf32<false>(pm[ni][3], ah[3], al[3]);   // row g+8, depth 2t+1
+      mma_step<false>(acc, ah, al, v, 8 * ni, 8);
     }
+}
 
-    // S <- e^{cum_L} S + (k * w)^T v over the chunk's rows
-    for (int idx = tid; idx < Qc * kT; idx += kThreads)
-      ks[(idx >> 6) * kLd + (idx & 63)] *= wdec[idx >> 6];
-    __syncthreads();
-    float upd[4][4];
-    zero(upd);
-    mm_tn(upd, ks, vs, Qc);
-    const float dec = expf(cL);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = st[i][j] * dec + upd[i][j];
-    __syncthreads();
+// Shared-memory tiles of the chunk kernel, each with its mbarrier: the
+// entry state S_c (slot 0), then q_t, k_t, v_t of row tile t.
+__device__ __forceinline__ int slot_q(int t) { return 1 + 3 * t; }
+__device__ __forceinline__ int slot_k(int t) { return 2 + 3 * t; }
+__device__ __forceinline__ int slot_v(int t) { return 3 + 3 * t; }
+constexpr int kSlots = 1 + 3 * (kMaxQ / kT);
+
+int chunk_smem_bytes(int Q) {
+  const int tiles = 1 + 3 * ((Q + kT - 1) / kT);
+  return 4 * tiles * kTile + 8 * (kMaxQ + 8 + kSlots) + 8 * kMaxQ;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_fwd_chunk_kernel(FwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const int Qp = (a.Q + kT - 1) / kT * kT;
+  float* tiles = reinterpret_cast<float*>(smem4);    // 1 + 3 Qp / 64 tiles
+  double* cum2 = reinterpret_cast<double*>(tiles + (1 + 3 * Qp / kT) * kTile);
+  double* scratch = cum2 + kMaxQ;                    // cum / ln 2, 8
+  uint64_t* bar = reinterpret_cast<uint64_t*>(scratch + 8);   // kSlots
+  float* ecum = reinterpret_cast<float*>(bar + kSlots);       // e^{cum_i}
+  float* colf = ecum + kMaxQ;        // e^{cum_{j|15} - cum_j}, the note
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const long long bhc = blockIdx.x, bh = bhc / a.nc;
+  const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
+  const int p0 = blockIdx.y * kT, PT = min(kT, a.P - p0);
+  const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
+  const int nT = (Qc + kT - 1) / kT;
+  const int kN8 = (a.N + 7) & ~7;
+  const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
+  const float* K = a.k + b * a.vk.b + h * a.vk.h + s0 * a.vk.s;
+  const float* V = a.v + b * a.vv.b + h * a.vv.h + s0 * a.vv.s + p0;
+  const float* Qm = a.q + b * a.vq.b + h * a.vq.h + s0 * a.vq.s;
+  float* Y = a.y + b * a.vy.b + h * a.vy.h + s0 * a.vy.s + p0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) hopper::mbar_init(&bar[i], kThreads);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  // every tile's copies issued now, in the order the warps first read
+  // them: S, row tiles 0 and 1, the q of the later row tiles (each warp's
+  // second slab opens with them), then their k and v
+  auto copy = [&](int slot, const float* src, long long stride, int rows,
+                  int cols, bool wide) {
+    copy_tile(tiles + slot * kTile, src, stride, rows, cols, wide);
+    hopper::cp_async_mbar_arrive(&bar[slot]);
+  };
+  auto rows_of = [&](int T) { return min(kT, Qc - T * kT); };
+  copy(0, a.states + bhc * a.N * a.P + p0, a.P, a.N, PT, a.P % 4 == 0);
+  for (int T = 0; T < min(nT, 2); ++T) {
+    copy(slot_q(T), Qm + T * kT * a.vq.s, a.vq.s, rows_of(T), a.N, a.wq);
+    copy(slot_k(T), K + T * kT * a.vk.s, a.vk.s, rows_of(T), a.N, a.wk);
+    copy(slot_v(T), V + T * kT * a.vv.s, a.vv.s, rows_of(T), PT, a.wv);
+  }
+  for (int T = 2; T < nT; ++T)
+    copy(slot_q(T), Qm + T * kT * a.vq.s, a.vq.s, rows_of(T), a.N, a.wq);
+  for (int T = 2; T < nT; ++T) {
+    copy(slot_k(T), K + T * kT * a.vk.s, a.vk.s, rows_of(T), a.N, a.wk);
+    copy(slot_v(T), V + T * kT * a.vv.s, a.vv.s, rows_of(T), PT, a.wv);
   }
 
+  // cum in double (kept as cum / ln 2 for exp2) and e^{cum_i}
+  const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
+  cum2[tid] = cs * 1.4426950408889634;
+  ecum[tid] = tid < Qc ? (float)exp(cs) : 0.f;
+  __syncthreads();
+  colf[tid] = (float)exp2(cum2[tid | 15] - cum2[tid]);
+  __syncthreads();
+
+  const float* S_ = tiles;
+  const int nS = (Qc + 15) / 16;        // 16-row slabs of the chunk
+  for (int pass = 0; pass < 2; ++pass) {
+    const int s = pass == 0 ? warp : 2 * kWarps - 1 - warp;
+    if (s >= nS) break;
+    const int I = s >> 2, m0 = 16 * (s & 3), r0 = 16 * s;
+    const float* q_ = tiles + slot_q(I) * kTile;
+    const double cr[2] = {cum2[r0 + g], cum2[r0 + g + 8]};
+    hopper::mbar_wait_bounded(&bar[0], 0);
+    hopper::mbar_wait_bounded(&bar[slot_q(I)], 0);
+
+    // the inter-chunk term e^{cum_i} q_i S_c
+    Blk y;
+    tile_product<false>(y, q_, m0, S_, kN8, 8);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int no = 0; no < 8; ++no)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = row_of(i), p = col_of(j);
-      if (n < a.N && p < PT)
-        a.final_state[bh * NP + (long long)n * a.P + p0 + p] = st[i][j];
+      for (int e = 0; e < 4; ++e) y[no][e] *= ecum[r0 + g + 8 * (e >> 1)];
+
+    for (int J = 0; J <= I; ++J) {
+      const float* k_ = tiles + slot_k(J) * kTile;
+      const float* v_ = tiles + slot_v(J) * kTile;
+      hopper::mbar_wait_bounded(&bar[slot_k(J)], 0);
+      hopper::mbar_wait_bounded(&bar[slot_v(J)], 0);
+      // column groups at or below the diagonal
+      const int nt = J < I ? 8 : 2 * (s & 3) + 2;
+      Blk sc;
+      tile_product<true>(sc, q_, m0, k_, kN8, nt);     // q_i . k_j
+      // the decay mask: e^{cum_i - e_G} e^{e_G - cum_j} for a column j in
+      // a 16-column group G before the slab's (e_G = cum at its last
+      // column; both factors <= 1), e^{cum_i - cum_j} itself, for i >= j
+      // only, in the slab's own group
+      float rg[4][2];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          rg[m][hh] = 4 * J + m < s && r0 + g + 8 * hh < Qc
+                      ? exp2f((float)(cr[hh] - cum2[64 * J + 16 * m + 15]))
+                      : 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        if (ni < nt) {
+          const int col0 = J * kT + 8 * ni + 2 * t;
+          if (4 * J + (ni >> 1) < s) {
+            const float2 cf = *reinterpret_cast<const float2*>(colf + col0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[ni][e] *= rg[ni >> 1][e >> 1] * (e & 1 ? cf.y : cf.x);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = r0 + g + 8 * (e >> 1), col = col0 + (e & 1);
+              sc[ni][e] = col <= r && r < Qc
+                          ? sc[ni][e] * exp2f((float)(cr[e >> 1] - cum2[col]))
+                          : 0.f;
+            }
+          }
+        }
+      Blk part;
+      score_product(part, sc, v_, nt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) (&y[0][0])[i] += (&part[0][0])[i];
     }
+
+#pragma unroll
+    for (int no = 0; no < 8; ++no)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + g + 8 * hh, col = 8 * no + 2 * t;
+        if (r >= Qc || col >= PT) continue;
+        float* dst = Y + (long long)r * a.vy.s + col;
+        if (a.wy) {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(y[no][2 * hh], y[no][2 * hh + 1]);
+        } else {
+          dst[0] = y[no][2 * hh];
+          if (col + 1 < PT) dst[1] = y[no][2 * hh + 1];
+        }
+      }
+  }
+  // no thread leaves with copies in flight (each one's arrival is due)
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+}
+
+bool aligned(const float* p, long long sb, long long sh, long long ss,
+             int cols, int elems) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * elems) == 0
+         && sb % elems == 0 && sh % elems == 0 && ss % elems == 0
+         && cols % elems == 0;
 }
 
 }  // namespace
 
 // Strides are element strides of the (B, H, S) axes of a, k, v, q and y;
-// the last axis of k, v, q, y has unit stride.  N <= 64, any P, 1 <= Q <=
-// 256.  Returns a CUDA error code (0 on success).
+// the last axis of k, v, q, y has unit stride.  init (B,H,N,P) may be
+// null; final_state (B,H,N,P) and states (B,H,nc,N,P) are contiguous and
+// both written; work holds B*H*nc*(N*P + 1) doubles.  N <= 64, any P, 1 <=
+// Q <= 256.  Three launches on `stream`.  Returns a CUDA error code (0 on
+// success).
 extern "C" int ssd_scan_fwd_launch(
     const float* a, const float* k, const float* v, const float* q,
     const float* init, float* y, float* final_state, float* states,
+    double* work,
     long long ab, long long ah, long long as,
     long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs,
@@ -195,17 +430,35 @@ extern "C" int ssd_scan_fwd_launch(
     long long yb, long long yh, long long ys,
     int B, int H, int S, int N, int P, int Q, void* stream) {
   if (B < 1 || H < 1 || S < 1 || N < 1 || N > kT || P < 1 || Q < 1
-      || Q > kMaxQ)
+      || Q > kMaxQ || states == nullptr || work == nullptr)
     return (int)cudaErrorInvalidValue;
+  const int nc = (S + Q - 1) / Q;
+  const long long chunks = (long long)B * H * nc;
   FwdArgs args{a, k, v, q, init, y, final_state, states,
+               work, work + chunks * N * P,
                {ab, ah, as}, {kb, kh, ks}, {vb, vh, vs}, {qb, qh, qs},
-               {yb, yh, ys}, H, S, N, P, Q, (S + Q - 1) / Q};
-  const int smem = fwd_smem_bytes(Q);
+               {yb, yh, ys}, H, S, N, P, Q, nc,
+               aligned(k, kb, kh, ks, N, 4), aligned(v, vb, vh, vs, P, 4),
+               aligned(q, qb, qh, qs, N, 4), aligned(y, yb, yh, ys, P, 2)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = chunk_smem_bytes(Q);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_fwd_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSumsSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_fwd_chunk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (P + kT - 1) / kT);
-  ssd_fwd_kernel<<<grid, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(args);
+  const int blocks = (N * P + kThreads - 1) / kThreads;
+  const int ptiles = (P + kT - 1) / kT;
+  if (chunks > 0x7fffffffLL || (long long)B * H * blocks > 0x7fffffffLL
+      || ptiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)chunks, ptiles);
+  ssd_fwd_sums_kernel<<<grid, kThreads, kSumsSmem, st>>>(args);
+  ssd_fwd_carry_kernel<<<(unsigned)(B * H * blocks), kThreads, 0, st>>>(
+      args, blocks);
+  ssd_fwd_chunk_kernel<<<grid, kThreads, smem, st>>>(args);
   return (int)cudaGetLastError();
 }

@@ -73,9 +73,7 @@
 //   C, X, Y, U, the dS carry, <dS, S> and both scans.  The products use
 //   dS rounded to fp32.
 
-#include "hopper.cuh"
 #include "ssd_mma.cuh"
-#include "ssd_tiles.cuh"
 
 namespace {
 
@@ -83,7 +81,6 @@ using namespace ssd;
 
 // 3xTF32: each product also takes its lo terms; false leaves plain TF32
 constexpr bool kSplit = true;
-constexpr int kTile = kT * kT;       // floats in a 64 x 64 tile
 
 struct BwdArgs {
   const float* a; const float* k; const float* v; const float* q;
@@ -98,30 +95,6 @@ struct BwdArgs {
   int H, S, N, P, Q, nc;
   bool wk, wv, wq, wdy;    // 16-byte copies allowed
 };
-
-// Rows [0, rows) and columns [0, cols) of a matrix with row stride
-// `stride` into a swizzled tile by cp.async, zeros elsewhere: 16-byte
-// copies where `wide` (address, strides and cols multiples of 16 bytes),
-// else 4-byte ones.
-__device__ __forceinline__ void copy_tile(float* dst, const float* src,
-                                          long long stride, int rows,
-                                          int cols, bool wide) {
-  if (wide) {
-    for (int i = threadIdx.x; i < kTile / 4; i += kThreads) {
-      const int r = i >> 4, c = (i & 15) * 4;
-      const bool ok = r < rows && c < cols;
-      hopper::cp_async16(dst + tile_at(r, c), ok ? src + r * stride + c : src,
-                         ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const int r = i >> 6, c = i & 63;
-      const bool ok = r < rows && c < cols;
-      hopper::cp_async4(dst + tile_at(r, c), ok ? src + r * stride + c : src,
-                        ok ? 4 : 0);
-    }
-  }
-}
 
 // Element (x, y) of an operand held in a swizzled tile: tile element
 // (x, y) (Rows), or (y, x) for a transposed one (Cols).  x is the row of
@@ -384,13 +357,8 @@ __device__ __forceinline__ void row_dots(double* part, TX X,
 }
 
 // ---------------------------------------------------------------- sums
-constexpr int kLdD = kT + 4;     // a row of the fp64 dy tile, padded so
-                                 // that the 8-byte reads miss no bank
-constexpr int kSumsSmem = 4 * 4 * kTile + 8 * (kT * kLdD + kMaxQ + 8);
-
 // U_c = sum_i e^{cum_i} q_i dy_i^T (N x P) in fp64 on DMMA, and e^{cum_L},
-// for one (b, h, chunk).  Each dy tile is widened to fp64 once for all
-// warps.
+// for one (b, h, chunk).
 __global__ void __launch_bounds__(kThreads) ssd_bwd_sums_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // q[2], dy[2]: a ring of
@@ -399,77 +367,21 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_sums_kernel(BwdArgs a) {
   double* e = yd + kT * kLdD;                    // e^{cum_i}
   double* scratch = e + kMaxQ;
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int tid = threadIdx.x;
   const long long bhc = blockIdx.x, bh = bhc / a.nc;
   const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
   const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
-  const int nT = (Qc + kT - 1) / kT;
   const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
-  const float* Qm = a.q + b * a.vq.b + h * a.vq.h + s0 * a.vq.s;
-  const float* DY = a.dy + b * a.vdy.b + h * a.vdy.h + s0 * a.vdy.s;
-
-  auto issue = [&](int T) {
-    const int rows = min(kT, Qc - T * kT);
-    copy_tile(qt + (T & 1) * kTile, Qm + T * kT * a.vq.s, a.vq.s,
-                        rows, a.N, a.wq);
-    copy_tile(yt + (T & 1) * kTile, DY + T * kT * a.vdy.s, a.vdy.s,
-                        rows, a.P, a.wdy);
-    hopper::cp_async_commit();
-  };
-  issue(0);
-  const double cs = block_scan(
-      tid < Qc ? log(fmax((double)A[tid * a.va.s], (double)kMinA)) : 0.0,
-      scratch);
+  const Rows64 x{a.q + b * a.vq.b + h * a.vq.h + s0 * a.vq.s, a.vq.s, a.N,
+                 a.wq};
+  const Rows64 y{a.dy + b * a.vdy.b + h * a.vdy.h + s0 * a.vdy.s, a.vdy.s,
+                 a.P, a.wdy};
+  issue_rows(qt, yt, x, y, 0, Qc);
+  const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
   e[tid] = tid < Qc ? exp(cs) : 0.0;
   if (tid == Qc - 1) a.decay[bhc] = exp(cs);
-
-  // warp w: rows m0..m0+15 and columns n0..n0+31 of U
-  const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
-  double u[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) u[nt][j] = 0.0;
-  for (int T = 0; T < nT; ++T) {
-    if (T + 1 < nT) issue(T + 1);
-    else hopper::cp_async_commit();
-    hopper::cp_async_wait<1>();
-    __syncthreads();
-    const float* q_ = qt + (T & 1) * kTile;
-    const float* y_ = yt + (T & 1) * kTile;
-    for (int i = tid; i < kTile; i += kThreads)
-      yd[(i >> 6) * kLdD + (i & 63)] = (double)y_[tile_at(i >> 6, i & 63)];
-    __syncthreads();
-    const int rows = min(kT, Qc - T * kT);
-    if (m0 < a.N) {
-      for (int k = 0; k < rows; k += 8) {
-        // A(n, i) = q_i[n] e^{cum_i}, B(i, p) = dy_i[p]
-        double av[4], bv[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = k + t + 4 * (j >> 1);
-          av[j] = (double)q_[tile_at(i, m0 + g + 8 * (j & 1))] * e[T * kT + i];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            bv[nt][j] = yd[(k + t + 4 * j) * kLdD + n0 + 8 * nt + g];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_f64(u[nt], av, bv[nt]);
-      }
-    }
-    __syncthreads();
-  }
-  double* U = a.carry + bhc * a.N * a.P;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = m0 + g + 8 * (j >> 1), p = n0 + 8 * nt + 2 * t + (j & 1);
-      if (n < a.N && p < a.P) U[n * a.P + p] = u[nt][j];
-    }
+  outer_sum_f64(qt, yt, yd, e, x, y, Qc, a.carry + bhc * a.N * a.P, a.P,
+                a.N, a.P);
 }
 
 // ---------------------------------------------------------------- carry
@@ -627,9 +539,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
   issue(0, 0, 0, true);
 
   // cum, e^{cum}, w; S and dS as fp32 tiles, <dS, S> in double
-  const double cs = block_scan(
-      tid < Qc ? log(fmax((double)A[tid * a.va.s], (double)kMinA)) : 0.0,
-      scratch);
+  const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
   cum[tid] = cs;
   cum2[tid] = cs * 1.4426950408889634;
   fsum[tid] = 0.0;

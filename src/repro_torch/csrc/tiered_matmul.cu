@@ -151,25 +151,7 @@ struct TcArgs {
   int x_vec;                            // x rows read 16 bytes at a time
 };
 
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n}\n"
-      : "=r"(done) : "r"(hopper::smem_addr(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// hopper::mbar_wait, but a phase that has not completed after ~4 s traps
-__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
-                                                  uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 33)) __trap();
-}
+using hopper::mbar_wait_bounded;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(

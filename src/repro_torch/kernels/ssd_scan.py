@@ -14,10 +14,14 @@ inside the chunk,
   y_i   = sum_{j<=i} (q_i . k_j) e^{cum_i - cum_j} v_j + e^{cum_i} q_i S
   S_new = e^{cum_L} S + sum_j e^{cum_L - cum_j} k_j v_j^T
 
-(L the chunk's last position).  The TPU kernel is forward only: JAX
-differentiates the pure-JAX scan.  Here the gradient is a kernel too; it
-starts from the chunk-entry states the forward saves (not recomputed) and
-carries dS:
+(L the chunk's last position).  Only the state runs from chunk to chunk,
+so the forward kernel (``csrc/ssd_scan.cu``) forms it first, in float64:
+each chunk's sum dS_c = sum_j e^{cum_L - cum_j} k_j v_j^T, then the scan
+S_{c+1} = e^{cum_L} S_c + dS_c (:func:`_entry_states` is its order on the
+CPU); the rest of every chunk is local, and the chunks run in parallel.
+The TPU kernel is forward only: JAX differentiates the pure-JAX scan.
+Here the gradient is a kernel too; it starts from the chunk-entry states
+the forward saves (not recomputed) and carries dS:
 
   dq_i = sum_{j<=i} e^{cum_i-cum_j} (dy_i . v_j) k_j + e^{cum_i} S dy_i
   dk_j = sum_{i>=j} e^{cum_i-cum_j} (dy_i . v_j) q_i + w_j dS v_j
@@ -73,7 +77,7 @@ launches = 0
 bwd_launches = 0
 
 _TILE = 64                   # state rows / columns held by one block
-_MAX_CHUNK = 256             # the forward holds a whole chunk of k and v
+_MAX_CHUNK = 256             # the kernels scan a chunk, a position a thread
 _MIN_A = 1e-37               # log(max(a, 1e-37)), as the reference
 
 
@@ -204,6 +208,31 @@ def _exit_grads(la64, q, dy, d_final, chunk: int):
     return torch.stack(exits, dim=2), dS
 
 
+def _entry_states(la64, k, v, chunk: int, init=None):
+    """Every chunk's entry state and the final state, in float64, in the
+    forward kernel's order (``csrc/ssd_scan.cu``): the chunk sums dS_c =
+    sum_j e^{cum_L - cum_j} k_j v_j^T, each on its own, then the scan
+    S_{c+1} = e^{cum_L,c} S_c + dS_c from ``init`` (zero for None).
+    ``la64``: log a (B, H, S) in float64.  Returns (S (B, H, nc, N, P),
+    final (B, H, N, P))."""
+    S = la64.shape[-1]
+    sums, decays = [], []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(s0 + chunk, S))
+        cum = torch.cumsum(la64[:, :, sl], dim=-1)
+        w = torch.exp(cum[..., -1:] - cum)
+        sums.append(torch.einsum("bhjn,bhjp->bhnp",
+                                 k[:, :, sl].double() * w[..., None],
+                                 v[:, :, sl].double()))
+        decays.append(torch.exp(cum[..., -1])[..., None, None])
+    state = torch.zeros_like(sums[0]) if init is None else init.double()
+    entries = []
+    for c in range(len(sums)):
+        entries.append(state)
+        state = decays[c] * state + sums[c]
+    return torch.stack(entries, dim=2), state
+
+
 def _dlog_decay(terms, k, v, q, dy, s_prev, dS):
     """d(log a) over one chunk, all float64, as ``csrc/ssd_scan_bwd.cu``
     forms it: sum_{i>=t} (R_i - C_i + X_i) + e^{cum_L} <dS, S>
@@ -268,7 +297,9 @@ def ssd_scan_fwd(a, k, v, q, chunk: int = 256, initial_state=None,
                  save_states: bool = False):
     """(y (B, H, S, P), final state (B, H, N, P), chunk-entry states
     (B, H, nc, N, P) or None), all fp32.  y is laid out as v is (so a
-    (B, S, H, P) view in gives a (B, S, H, P) tensor underneath)."""
+    (B, S, H, P) view in gives a (B, S, H, P) tensor underneath).  The
+    kernel writes the states in any case: without ``save_states`` into a
+    scratch tensor."""
     global launches
     _check(a, k, v, q, chunk, initial_state)
     if a.device.type == "cpu":
@@ -282,19 +313,22 @@ def ssd_scan_fwd(a, k, v, q, chunk: int = 256, initial_state=None,
     nc = -(-S // chunk)
     y = torch.empty_like(v)
     final = torch.empty((B, H, N, P), dtype=torch.float32, device=a.device)
-    states = (torch.empty((B, H, nc, N, P), dtype=torch.float32,
-                          device=a.device) if save_states else None)
+    states = torch.empty((B, H, nc, N, P), dtype=torch.float32,
+                         device=a.device)
+    # each chunk's sum dS_c and e^{cum_L}
+    work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float64,
+                       device=a.device)
     init = initial_state.contiguous() if initial_state is not None else None
     err = _bind_fwd()(
         a.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
         init.data_ptr() if init is not None else None, y.data_ptr(),
-        final.data_ptr(), states.data_ptr() if states is not None else None,
+        final.data_ptr(), states.data_ptr(), work.data_ptr(),
         *_strides(a), *_strides(k), *_strides(v), *_strides(q), *_strides(y),
         B, H, S, N, P, chunk, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 1
-    return y, final, states
+    return y, final, states if save_states else None
 
 
 def ssd_scan_bwd(a, k, v, q, dy, states, final, d_final, chunk: int,
@@ -390,7 +424,7 @@ def _bind_fwd():
     fn = build.load("ssd_scan").ssd_scan_fwd_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 8 + [L] * 15 + [I] * 6 + [P]
+        fn.argtypes = [P] * 9 + [L] * 15 + [I] * 6 + [P]
         fn.restype = ctypes.c_int
     return fn
 

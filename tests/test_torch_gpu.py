@@ -469,23 +469,62 @@ def test_ssd_scan_bwd_dloga_at_the_training_shape_beats_the_plain_version(
                                atol=SSD_TOL)
 
 
+def _ssd_shape(shape):
+    """(B, H, S, N, P, chunk): zamba2-1.2b's training shape ("train"), the
+    ragged (1, 4, 1000) one, or the reduced config's chunks of 64."""
+    if shape == "reduced":
+        from repro_torch.configs import get_config
+        zr = get_config("zamba2-1.2b").reduced()
+        return (2, zr.ssm_expand * zr.d_model // zr.ssm_head_dim, 64,
+                zr.ssm_state, zr.ssm_head_dim, 64)
+    return ((2, 64, 4096, 64, 64, 256) if shape == "train"
+            else (1, 4, 1000, 64, 64, 256))
+
+
+@pytest.mark.parametrize("shape", ["train", "ragged", "reduced"])
+def test_ssd_scan_fwd_gives_the_same_bits_on_every_call(cuda, shape):
+    """Two calls of the forward on the same inputs give the same y, final
+    state and chunk states, bit for bit: no atomics and a fixed order of
+    every sum, in each of its three launches.  k and q broadcast over H,
+    decays near 1, an initial state."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    B, H, S, N, P, chunk = _ssd_shape(shape)
+    a, k, v, q = _ssd_inputs(B, H, S, N, P, 27, True, near1=True)
+    s0 = _randn((B, H, N, P), torch.float32, 28, 0.3)
+    first = ss.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    second = ss.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    for name, x, y2 in zip(("y", "final", "states"), first, second):
+        assert torch.equal(x, y2), name
+
+
+@pytest.mark.parametrize("B,H,S,N,P,chunk,bcast", [
+    (2, 3, 300, 32, 64, 128, False), (1, 4, 1000, 64, 64, 256, True),
+    (1, 2, 130, 6, 12, 64, True)])
+def test_ssd_scan_fwd_ignores_stale_shared_memory(cuda, B, H, S, N, P, chunk,
+                                                  bcast):
+    """Every SM's shared memory filled with NaN just before the forward: a
+    read of a tile or slot that no copy wrote would reach y or the states.
+    A ragged last chunk, and N, P no multiple of 4 (the 4-byte copies);
+    decays near 1, an initial state."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    a, k, v, q = _ssd_inputs(B, H, S, N, P, 29, bcast, near1=True)
+    s0 = _randn((B, H, N, P), torch.float32, 30, 0.3)
+    da.fill_shared_memory_nan(a.device)
+    got = ss.ssd_scan_fwd(a, k, v, q, chunk, s0, save_states=True)
+    want = ss._plain_forward(a, k, v, q, chunk, s0)
+    for name, g, w in zip(("y", "final", "states"), got, want):
+        torch.testing.assert_close(g, w, rtol=SSD_TOL, atol=SSD_TOL, msg=name)
+
+
 @pytest.mark.parametrize("shape", ["train", "ragged", "reduced"])
 def test_ssd_scan_bwd_gives_the_same_bits_on_every_call(cuda, shape):
     """Two calls of the backward on the same inputs give the same bits: no
     atomics and a fixed order of every sum, in each of its three launches.
-    zamba2-1.2b's training shape, the ragged (1, 4, 1000) one and the
-    reduced config's chunks of 64; k and q broadcast over H, decays near
-    1, an initial state and a final-state gradient."""
+    k and q broadcast over H, decays near 1, an initial state and a
+    final-state gradient."""
     ss = importlib.import_module("repro_torch.kernels.ssd_scan")
-    if shape == "reduced":
-        from repro_torch.configs import get_config
-        zr = get_config("zamba2-1.2b").reduced()
-        B, H, S, N, P, chunk = (2, zr.ssm_expand * zr.d_model
-                                // zr.ssm_head_dim, 64, zr.ssm_state,
-                                zr.ssm_head_dim, 64)
-    else:
-        B, H, S, N, P, chunk = ((2, 64, 4096, 64, 64, 256) if shape == "train"
-                                else (1, 4, 1000, 64, 64, 256))
+    B, H, S, N, P, chunk = _ssd_shape(shape)
     a, k, v, q = _ssd_inputs(B, H, S, N, P, 23, True, near1=True)
     s0 = _randn((B, H, N, P), torch.float32, 24, 0.3)
     dy = _randn((B, H, S, P), torch.float32, 25)

@@ -321,6 +321,57 @@ def test_ssd_exit_grads_from_chunk_sums_equal_the_serial_carry(S, chunk,
     torch.testing.assert_close(d_init, G, rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("S,chunk", [(300, 128), (100, 256), (256, 64)])
+@pytest.mark.parametrize("with_initial", [False, True])
+def test_ssd_entry_states_from_chunk_sums_equal_the_serial_scan(S, chunk,
+                                                                with_initial):
+    """``_entry_states`` forms every chunk's entry state from the chunk
+    sums dS_c and the scan over chunks, as the forward kernel does: in
+    float64 it equals, to 1e-12, the state carried position by position,
+    S <- a_t S + k_t v_t^T, read before each chunk's first position and
+    after the last.  On fp32 inputs its final state matches the reference
+    Pallas kernel's (interpret mode) at the SSD tolerance: the kernel gives
+    no state, so N probe positions after the sequence (a = 1, k = v = 0, q
+    the unit vectors) read its rows out of y, and an initial state enters
+    through N positions before it (a = 1, k the unit vectors, v its rows).
+    A ragged last chunk, one chunk, and chunks of 64."""
+    B, H, N, P = 2, 3, 8, 6
+    arrays = scan_inputs(7, B, H, S, N, P, near_one=True)
+    rng = np.random.default_rng(8)
+    init = (rng.standard_normal((B, H, N, P)) * 0.3).astype(np.float32)
+    a, k, v, q = (torch.from_numpy(x).double() for x in arrays)
+    s0 = torch.from_numpy(init).double() if with_initial else None
+    entries, final = port_ss._entry_states(torch.log(a), k, v, chunk, s0)
+    state = s0.clone() if with_initial else torch.zeros(B, H, N, P,
+                                                        dtype=torch.float64)
+    assert entries.shape == (B, H, -(-S // chunk), N, P)
+    for t in range(S):
+        if t % chunk == 0:
+            torch.testing.assert_close(entries[:, :, t // chunk], state,
+                                       rtol=1e-12, atol=1e-12)
+        state = a[:, :, t, None, None] * state + torch.einsum(
+            "bhn,bhp->bhnp", k[:, :, t], v[:, :, t])
+    torch.testing.assert_close(final, state, rtol=1e-12, atol=1e-12)
+
+    a32, k32, v32, q32 = arrays
+    eye = np.broadcast_to(np.eye(N, dtype=np.float32), (B, H, N, N))
+    ones = np.ones((B, H, N), np.float32)
+    zk = np.zeros((B, H, N, N), np.float32)
+    zv = np.zeros((B, H, N, P), np.float32)
+    pre = ([ones], [eye], [init], [zk]) if with_initial else ([], [], [], [])
+    ext = [np.concatenate(pre[i] + [x] + [post], axis=2)
+           for i, (x, post) in enumerate(((a32, ones), (k32, zk), (v32, zv),
+                                          (q32, eye)))]
+    gold = ref_ops.ssd_scan(*(jnp.asarray(x) for x in ext), chunk=chunk,
+                            force_pallas=True, interpret=True)
+    entries32, final32 = port_ss._entry_states(
+        torch.log(torch.from_numpy(a32).double()), torch.from_numpy(k32),
+        torch.from_numpy(v32), chunk,
+        torch.from_numpy(init) if with_initial else None)
+    np.testing.assert_allclose(as_np(final32), as_np(gold)[:, :, -N:],
+                               **SSD_TOL)
+
+
 def _f64_scan_loss(a, k, v, q, dy):
     """The step-by-step recurrence in float64 (no chunks, no exponentials
     of differences)."""
