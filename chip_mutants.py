@@ -15,7 +15,9 @@ command line run those mutants only.  The mutants:
   ``corr_dropped`` (the online softmax never rescales),
   ``last_partial_tile_skipped`` (a key tile that ends past k_end is not
   loaded), ``diagonal_mask_dropped`` (keys past a row's position are not
-  masked);
+  masked), ``group_split_fixed_8`` (a stacked row's position is taken as
+  row / 8 where row / G belongs: right up to G 8, so only the G 16 checks
+  see it);
 - decode attention (the decode checks at the serving shapes, G = 16,
   peaked scores and behind a NaN fill of shared memory): ``merge_weight_dropped`` (the splits' partials are
   summed without exp(m_split - m)), ``newest_row_dropped`` (row
@@ -73,6 +75,10 @@ MUTANTS = {
         FLASH,
         "          if (kp >= T || (a.causal && kp > qpos[(v >> 1) & 1]))",
         "          if (kp >= T)", "flash"),
+    "group_split_fixed_8": (
+        FLASH, "const int qpos[2] = {(r0 + ra) / G, (r0 + ra + 8) / G};",
+        "const int qpos[2] = {(r0 + ra) / min(G, 8), "
+        "(r0 + ra + 8) / min(G, 8)};", "flash"),
     "merge_weight_dropped": (
         DECODE,
         "      const float w = mx == -INFINITY ? 0.f : exp2f(wgt[s][g] - mx);",
@@ -156,7 +162,9 @@ for c in [(1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
           (1, 1, 8, 300, 300, 256, True), (1, 1, 8, 128, 384, 256, True),
           (1, 32, 1, 512, 512, 64, True), (1, 1, 8, 300, 300, 256, True, 8.0),
           (1, 32, 1, 512, 512, 64, True, 8.0),
-          (1, 2, 4, 128, 300, 128, False, 8.0)]:
+          (1, 2, 4, 128, 300, 128, False, 8.0),
+          (1, 2, 16, 300, 300, 128, True),
+          (1, 2, 16, 300, 300, 128, True, 8.0)]:
     fwd, _ = cs._flash_case(timer, torch.bfloat16, *c[:7], gen, *c[7:])
     print(json.dumps(dict(case=c, ok=fwd["ok"], err=fwd["max_abs_err"],
                           lse_err=fwd["lse_max_abs_err"])), flush=True)
@@ -172,6 +180,8 @@ for dt in (torch.float32, torch.bfloat16):
     cases += [(dt, 4, 1, 8, 256, 1024, n, True) for n in (1, 160, 1024)]
     cases += [(dt, 4, 32, 1, 64, 1024, n, True) for n in (1, 160, 1024)]
     cases += [(dt, 2, 2, 16, 128, 1024, n, True) for n in (1, 33, 161, 1024)]
+    cases += [(dt, 4, K, G, 128, 1024, n, True) for K, G in ((4, 8), (2, 16))
+              for n in (1, 160, 1024)]
 for c in cases:
     r = cs._decode_case(None, *c, gen)
     print(json.dumps(dict(case=str(c), ok=r["ok"], err=r["max_abs_err"])),
@@ -192,6 +202,8 @@ for r in cs._stale_shared_cases(gen):
 gemma, zamba = cs._path_products()
 shapes = [(256, 512, 256), (300, 700, 500), (128, 128, 128)]
 shapes += [(4, K, N) for _, K, N in gemma + zamba]
+shapes += [(4, K, N) for arch in ("yi-6b", "chatglm3-6b")
+           for _, K, N in cs._layer_products(cs.get_config(arch))]
 rows = [cs._matmul_case(None, dt, M, K, N, gen)
         for dt in (torch.float32, torch.bfloat16) for M, K, N in shapes]
 for r in rows + cs._matmul_edge_cases(gen):

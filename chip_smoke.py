@@ -33,18 +33,31 @@ result line) if any phase fails:
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
-5. parity   -- reduced gemma-2b and zamba2-1.2b, fp32 weights, the card
-               against the CPU;
-6. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
+5. parity   -- reduced gemma-2b, zamba2-1.2b, yi-6b and chatglm3-6b, fp32
+               weights, the card against the CPU; yi-6b and chatglm3-6b
+               also at their real G (8 and 16 query heads over one KV
+               head);
+6. sim      -- the discrete-event simulator on the card's host: the
+               quickstart's CG workload DRAM-only, NVM-only and under
+               Unimem, twice (same plan digest and iteration times), and
+               the planner's wall time on each (re)plan;
+7. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
                served under the runtime, with every kernel launch counted;
-7. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
+8. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
                tokens, AdamW, per-layer remat) through ``train/loop.py``
                under the runtime, with every kernel launch counted;
-8. serve_zamba2 -- full-width zamba2-1.2b (38 Mamba-2 layers, a shared
+9. serve_zamba2 -- full-width zamba2-1.2b (38 Mamba-2 layers, a shared
                attention block every 6, d_model 2048) served the same way;
-9. train_zamba2 -- full-width zamba2-1.2b trained for 5 steps of batch
+10. train_zamba2 -- full-width zamba2-1.2b trained for 5 steps of batch
                2 x 4096 tokens (16 chunks of the SSD scan a sequence);
-10. kernels -- one line with each kernel's numbers.
+11. serve_yi, serve_chatglm3 -- full-width, full-depth yi-6b (32 layers,
+               d_model 4096, 32 heads over 4 KV heads of 128, SwiGLU 11008)
+               and chatglm3-6b (28 layers, 32 heads over 2 KV heads, qkv
+               bias, half-dim rotary, SwiGLU 13696) served as gemma-2b is;
+12. train_yi, train_chatglm3 -- the same at full width, cut to 8 layers
+               (the whole model's training state does not fit 80 GB),
+               trained as gemma-2b is;
+13. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
@@ -60,7 +73,9 @@ pair, with the L2 cache flushed before each launch, since the serving and
 training paths find weights, cache and activations cold.  Needs one CUDA card and nvcc; it stops at once without them.
 """
 
+import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -79,8 +94,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (H100_HBM_HOST, ManualSource,  # noqa: E402
-                              RuntimeConfig, UnimemRuntime)
+from repro_torch import _tree, sim  # noqa: E402
+from repro_torch.core import (H100_HBM_HOST, PAPER_DRAM_NVM,  # noqa: E402
+                              ManualSource, ObjectRegistry, RuntimeConfig,
+                              UnimemRuntime, calibrate)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -164,6 +181,20 @@ TRAIN_SHAPE = (2, 1, 8, 2048, 2048, 256)       # B, K, G, S, T, D
 # attention (32 heads over 32 KV heads of 64) and the SSD scan (64 heads,
 # N = P = 64, chunks of 256, k and q broadcast over the heads)
 ZAMBA_FLASH_SHAPE = (2, 32, 1, 4096, 4096, 64)
+# yi-6b's and chatglm3-6b's training step (batch 2 x 2048): 32 heads over 4
+# KV heads (G 8) and over 2 (G 16), D 128
+YI_FLASH_SHAPE = (2, 4, 8, 2048, 2048, 128)
+GLM_FLASH_SHAPE = (2, 2, 16, 2048, 2048, 128)
+TIMED_FLASH_SHAPES = (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE,
+                      GLM_FLASH_SHAPE)
+# the train paths of the 6-billion-parameter configs keep this many layers
+# and train at this rate: Adam's first steps move every weight by about lr,
+# so a layer's output by about fan-in x lr, and at d_model 4096 the losses
+# of 5 steps from a random init rose at 3e-4 (gemma-2b's and zamba2-1.2b's
+# rate, at d_model 2048) and at 1.5e-4, and fell at 1e-4, for both configs
+# (H100, a sweep of this phase's runs)
+SIX_B_TRAIN_LAYERS = 8
+SIX_B_TRAIN_LR = 1e-4
 SSD_TRAIN_SHAPE = (2, 64, 4096, 64, 64, 256)   # B, H, S, N, P, chunk
 
 
@@ -484,7 +515,7 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen, peak=1.0):
                dq_dk_dv_max_abs_err=[e for e, _ in g_err],
                tol=BWD_TOL[dtype], ok=all(o for _, o in g_err))
     del leaves, plain, plain_lse, want
-    if (B, K, G, S, T, D) in (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE):
+    if (B, K, G, S, T, D) in TIMED_FLASH_SHAPES:
         size = q.element_size()
         pairs = B * K * G * _visible_pairs(S, T, causal)
         io = (2 * q.numel() + 2 * k.numel()) * size + lse.numel() * 4
@@ -756,15 +787,19 @@ def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads) -> dict:
                            tol)[1]))
 
 
+def _layer_products(cfg) -> list:
+    """One attention layer's 7 products of a dense config, (name, K, N)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    return [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
+            ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
+            ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+
+
 def _path_products():
     """The serving paths' products, (name, K, N): one gemma-2b layer's 7,
     and zamba2-1.2b's Mamba-2 in_proj (N = 8384, a multiple of no tile)
     and out_proj and three of its shared block's."""
-    cfg = get_config("gemma-2b")
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-    gemma = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
-             ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
-             ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+    gemma = _layer_products(get_config("gemma-2b"))
     zcfg = get_config("zamba2-1.2b")
     zd, d_in = zcfg.d_model, zcfg.ssm_expand * zcfg.d_model
     zproj = 2 * d_in + 2 * zcfg.ssm_state + d_in // zcfg.ssm_head_dim
@@ -812,6 +847,18 @@ def phase_check(timer) -> list:
         for name, K, N in zamba_products:
             rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
                                      "zamba2:" + name))
+        # yi-6b's and chatglm3-6b's decode (G 8 and 16, D 128) over one
+        # layer's (4, 1024, K, 128) cache view, and each layer's 7 products
+        for arch in ("yi-6b", "chatglm3-6b"):
+            acfg = get_config(arch)
+            for length in (0, 1, 160, 1024):
+                rows.append(_decode_case(
+                    timer, dtype, 4, acfg.n_kv_heads,
+                    acfg.n_heads // acfg.n_kv_heads,
+                    acfg.resolved_head_dim, 1024, length, True, gen))
+            for name, K, N in _layer_products(acfg):
+                rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
+                                         f"{arch}:{name}"))
         for case in (
                 (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
                 (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
@@ -822,10 +869,13 @@ def phase_check(timer) -> list:
                 (1, 1, 8, 300, 300, 256, True),
                 (1, 1, 8, 128, 384, 256, True),     # S != T at D = 256
                 (1, 32, 1, 512, 512, 64, True),     # zamba2's G, K, D
+                # chatglm3-6b's G 16 at D 128, S and T multiples of no tile
+                (1, 2, 16, 300, 300, 128, True),
                 # peaked scores (q x 8): the running max moves
                 (1, 1, 8, 300, 300, 256, True, 8.0),
                 (1, 32, 1, 512, 512, 64, True, 8.0),
                 (1, 2, 4, 128, 300, 128, False, 8.0),
+                (1, 2, 16, 300, 300, 128, True, 8.0),
                 TRAIN_SHAPE + (True,)):
             if len(case) > 7 and dtype not in PEAKED_DTYPES:
                 continue
@@ -842,9 +892,11 @@ def phase_check(timer) -> list:
     for r in rows:
         if r["kernel"] == "decode_attention" and "ms" in r:
             r["launch_floor_ms"] = floor_ms
-    # zamba2's shared attention in training, bf16 as the path runs it
-    rows += _flash_case(timer, torch.bfloat16, *ZAMBA_FLASH_SHAPE, True, gen)
-    torch.cuda.empty_cache()
+    # zamba2's shared attention in training, then yi-6b's and chatglm3-6b's
+    # attention, bf16 as the paths run them
+    for shape in (ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE, GLM_FLASH_SHAPE):
+        rows += _flash_case(timer, torch.bfloat16, *shape, True, gen)
+        torch.cuda.empty_cache()
     zr = zcfg.reduced()
     for decay in ("strong", "near1"):
         for B, H, S, N, P, chunk, bcast in (
@@ -1012,15 +1064,21 @@ def _decode_errors(cfg, cpu, gpu, prompts, S, window=None) -> dict:
     return out
 
 
-def phase_parity(arch: str) -> dict:
+def phase_parity(arch: str, heads: int = None) -> dict:
     """A reduced config with the same fp32 weights on the card and on the
     CPU: identical greedy tokens, logits within PARITY_TOL after each
-    decode step and, for zamba2 (whose forward runs the SSD scan), after
-    ``forward`` over three chunks of the scan (the last ragged).  zamba2's
+    decode step and after ``forward`` over 600 positions (zamba2: three
+    chunks of the SSD scan, the last ragged; an attention config: the
+    flash kernel on every layer, ten key tiles, the last ragged).  zamba2's
     decode runs twice: with its bf16 conv window (ZAMBA_DECODE_TOL on the
     logits) and with the window in fp32 on both sides (PARITY_TOL on the
-    logits, the SSM state and the window)."""
+    logits, the SSM state and the window).  ``heads``: that many query
+    heads over one KV head, so that the kernels run the config's real G
+    (``reduced()`` leaves G = 4)."""
     cfg = get_config(arch).reduced()
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}-g{heads}",
+                                  n_heads=heads, n_kv_heads=1)
     # the same draws from one CPU generator, placed on either device
     cpu, gpu = (lm.init_params(cfg, torch.Generator().manual_seed(0),
                                device=d, dtype=torch.float32)
@@ -1036,6 +1094,7 @@ def phase_parity(arch: str) -> dict:
     hybrid = cfg.block_pattern == "mamba_shared_attn"
     dec = _decode_errors(cfg, cpu, gpu, prompts, S)
     res = dict(phase="parity", arch=cfg.name, params="float32",
+               G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim,
                tokens_identical=same, logits_max_abs_err=dec["logits"],
                tol=ZAMBA_DECODE_TOL if hybrid else PARITY_TOL,
                forward_tol=PARITY_TOL)
@@ -1043,14 +1102,13 @@ def phase_parity(arch: str) -> dict:
         res["decode_bf16_window_max_abs_err"] = dec
         res["decode_fp32_window_max_abs_err"] = _decode_errors(
             cfg, cpu, gpu, prompts, S, torch.float32)
-        # 600 positions: chunks of 256, 256 and 88, so the state is carried
-        seq = torch.randint(0, cfg.vocab_size, (B, 600),
-                            generator=torch.Generator().manual_seed(2))
-        ops.reset_launch_counts()
-        want, _ = lm.forward(cpu, cfg, seq)
-        got, _ = lm.forward(gpu, cfg, seq.cuda())
-        res["forward_launches"] = ops.launch_counts()
-        res["forward_logits_max_abs_err"] = (got.cpu() - want).abs().max().item()
+    seq = torch.randint(0, cfg.vocab_size, (B, 600),
+                        generator=torch.Generator().manual_seed(2))
+    ops.reset_launch_counts()
+    want, _ = lm.forward(cpu, cfg, seq)
+    got, _ = lm.forward(gpu, cfg, seq.cuda())
+    res["forward_launches"] = ops.launch_counts()
+    res["forward_logits_max_abs_err"] = (got.cpu() - want).abs().max().item()
     emit(res)
     require(same, "greedy tokens identical on card and CPU")
     require(res["logits_max_abs_err"] <= res["tol"], "logits within tolerance")
@@ -1061,8 +1119,11 @@ def phase_parity(arch: str) -> dict:
                 "window within PARITY_TOL")
         require(res["forward_launches"]["ssd_scan"] == cfg.n_layers,
                 "the forward ran the SSD kernel on every layer")
-        require(res["forward_logits_max_abs_err"] <= PARITY_TOL,
-                "forward logits within tolerance")
+    else:
+        require(res["forward_launches"]["flash_attention"] == cfg.n_layers,
+                "the forward ran the flash kernel on every layer")
+    require(res["forward_logits_max_abs_err"] <= PARITY_TOL,
+            "forward logits within tolerance")
     return res
 
 
@@ -1070,9 +1131,11 @@ def _expected_launches(cfg, path: str, steps: int) -> dict:
     """Exact launches of each kernel entry point on a path.  serve: per
     decode step, gemma-2b 18 decode attentions and 7 x 18 products; zamba2
     7 decode attentions (the shared block's applications) and 2 x 38 + 7 x 7
-    products.  train: per step, every layer's forward twice (remat) and
-    its backward once: gemma-2b 36 + 18 flash launches; zamba2 14 + 7 flash
-    and 76 + 38 SSD launches, 380 and 190 over 5 steps."""
+    products; yi-6b 32 and 7 x 32, chatglm3-6b 28 and 7 x 28 (serve_yi,
+    serve_chatglm3).  train: per step, every layer's forward twice (remat)
+    and its backward once: gemma-2b 36 + 18 flash launches; zamba2 14 + 7
+    flash and 76 + 38 SSD launches, 380 and 190 over 5 steps; yi-6b and
+    chatglm3-6b cut to 8 layers 16 + 8 (train_yi, train_chatglm3)."""
     counts = dict.fromkeys(ops.launch_counts(), 0)
     L = cfg.n_layers
     attn = L if cfg.block_pattern == "attn" else -(-L // cfg.attn_every)
@@ -1250,6 +1313,19 @@ def phase_serve(arch: str, name: str) -> dict:
     res["profile"] = prof = _profile(params, cfg, B, S, 8, min(wall_ms))
     calls = prof["calls_per_step_by_group"]
     res["device_operations_per_step"] = prof["device_events_per_step"]
+    # least time a decode step could take: the bytes of the weights it
+    # reads (the products', and all of them with the embedding and the
+    # head) over the card's memory rate
+    res["tiered_matmul_ms_per_step"] = prof["ms_per_step_by_group"].get(
+        "tiered_matmul")
+    res["tiered_matmul_bytes_bound_ms_per_step"] = None
+    if cfg.block_pattern == "attn":
+        res["tiered_matmul_bytes_bound_ms_per_step"] = 2 * sum(
+            K * N for _, K, N in _layer_products(cfg)) * cfg.n_layers \
+            / HBM_BW * 1e3
+    res["weights_bytes_bound_ms_per_step"] = (
+        sum(t.numel() * t.element_size() for t in _tree.leaves(params))
+        / HBM_BW * 1e3)
     emit(res)
     require(launches == expect, f"launch counts {launches} == {expect}")
     require(calls.get("tiered_matmul") == expect["tiered_matmul"] / steps
@@ -1268,17 +1344,24 @@ def phase_serve(arch: str, name: str) -> dict:
     return res
 
 
-def phase_train(arch: str, S: int, name: str) -> dict:
+def phase_train(arch: str, S: int, name: str, layers: int = None,
+                lr: float = 3e-4) -> dict:
     """A full-width model, bf16 parameters from a seeded generator, AdamW
-    (fp32 master and moments, lr 3e-4), per-layer remat, batch 2 x S
-    tokens from the ported pipeline, 5 steps through ``train/loop.py``
-    under ``UnimemRuntime(H100_HBM_HOST)``."""
-    cfg = get_config(arch)
+    (fp32 master and moments, lr 3e-4 unless given), per-layer remat,
+    batch 2 x S tokens from the ported pipeline, 5 steps through
+    ``train/loop.py`` under ``UnimemRuntime(H100_HBM_HOST)``.  ``layers``
+    cuts the depth (the row says so under ``reduced``): at 16 bytes a
+    parameter (bf16 weights and gradients, fp32 master and moments) a
+    whole 6-billion-parameter model's training state outgrows the card's
+    80 GB."""
+    cfg = full = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(full, n_layers=layers)
     B, steps = 2, 5
-    tcfg = TrainConfig(steps=steps, global_batch=B, seq_len=S, lr=3e-4,
+    tcfg = TrainConfig(steps=steps, global_batch=B, seq_len=S, lr=lr,
                        remat=True, log_every=1, seed=0,
                        machine=H100_HBM_HOST, device="cuda")
-    opt = AdamWConfig(lr=3e-4)
+    opt = AdamWConfig(lr=lr)
     _free()
     ops.reset_launch_counts()            # the main path starts here
     t0 = time.perf_counter()
@@ -1299,6 +1382,11 @@ def phase_train(arch: str, S: int, name: str) -> dict:
         phase=name, arch=cfg.name, dtype="bfloat16",
         n_params=cfg.n_params(), layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, batch=B, seq_len=S, steps=steps, remat=True,
+        reduced=None if layers is None else dict(
+            n_layers=[full.n_layers, layers],
+            reason=f"training state of the whole model, "
+                   f"{16 * full.n_params() / 1e9:.1f} GB at 16 bytes a "
+                   "parameter, does not fit the card's 80 GB"),
         optimizer=dict(lr=opt.lr, master_fp32=opt.master_fp32,
                        moments=opt.moments_dtype),
         losses=res.losses, grad_norms=res.grad_norms, ms_per_step=ms,
@@ -1378,6 +1466,84 @@ def _train_profile(cfg, tcfg, opt, wall_ms: float) -> dict:
     return prof
 
 
+def _sim_run(machine, wl, tier=None):
+    """The quickstart's CG run: a static placement (``tier``) or Unimem with
+    a 256 MB fast tier; returns (result, plan digest, host seconds,
+    seconds of each plan build), the plan builds timed from outside the
+    package by wrapping the session's ``_build_plan``."""
+    if tier is not None:
+        reg = ObjectRegistry()
+        for n, s in wl.objects.items():
+            reg.alloc(n, s, tier=tier)
+        t0 = time.perf_counter()
+        res = sim.SimulationEngine(machine, wl, registry=reg).run(10)
+        return res, None, time.perf_counter() - t0, []
+    rt = UnimemRuntime(machine, RuntimeConfig(fast_capacity_bytes=256 * MB),
+                       cf=calibrate(machine))
+    plans, build_plan = [], rt._build_plan
+
+    def timed_build(*args, **kw):
+        t = time.perf_counter()
+        out = build_plan(*args, **kw)
+        plans.append(time.perf_counter() - t)
+        return out
+    rt._build_plan = timed_build
+    statics = wl.static_ref_counts()
+    for n, s in wl.objects.items():
+        rt.register(n, s, chunkable=wl.chunkable.get(n, False),
+                    static_refs=statics.get(n))
+    t0 = time.perf_counter()
+    res = sim.SimulationEngine(machine, wl, runtime=rt).run(12)
+    secs = time.perf_counter() - t0
+    digest = hashlib.sha256(rt.plan.to_json().encode()).hexdigest()[:16]
+    return res, digest, secs, plans
+
+
+def phase_sim() -> dict:
+    """The discrete-event simulator on the card's host (numpy only): the
+    quickstart's CG workload (``examples/quickstart_torch.py``) DRAM-only,
+    NVM-only and under Unimem, each twice: the same plan digest and
+    iteration times both times, and Unimem's steady time between the other
+    two.  Then the planner's wall time on a larger workload that replans
+    (``paged_serving``, chunked objects, the default drift threshold)."""
+    machine = PAPER_DRAM_NVM.scaled(bw_scale=0.5)
+    runs = {}
+    for name, tier in (("dram", "fast"), ("nvm", "slow"), ("unimem", None)):
+        runs[name] = [_sim_run(machine, sim.NPB_WORKLOADS["cg"](), tier)
+                      for _ in range(2)]
+    steady = {n: r[0][0].steady_iteration_time for n, r in runs.items()}
+    same = {n: r[0][0].iteration_times == r[1][0].iteration_times
+            and r[0][1] == r[1][1] for n, r in runs.items()}
+    uni = runs["unimem"]
+    paged = _sim_run(PAPER_DRAM_NVM.scaled(bw_scale=0.5, lat_scale=2.0),
+                     sim.SKEWED_SCENARIO_WORKLOADS["paged_serving"]())
+    res = dict(
+        phase="sim", workload="cg", steady_ms={n: s * 1e3
+                                               for n, s in steady.items()},
+        iteration_times_s={n: r[0][0].iteration_times
+                           for n, r in runs.items()},
+        plan_digest=[r[1] for r in uni], deterministic=same,
+        unimem_host_s=[r[2] for r in uni],
+        unimem_plan_build_s=[r[3] for r in uni],
+        stats=uni[0][0].stats,
+        paged_serving=dict(host_s=paged[2], plan_build_s=paged[3],
+                           n_replans=paged[0].stats["n_replans"],
+                           n_objects=paged[0].stats["n_objects"],
+                           plan_digest=paged[1]))
+    print(json.dumps(res, default=str), flush=True)
+    require(all(same.values()), f"two runs give the same results ({same})")
+    # the static and the managed runs add the same phase times in another
+    # order, so Unimem at DRAM speed may differ from DRAM-only in the last
+    # bits (54.0972288 against 54.097228799999996 ms here)
+    eps = 1e-12
+    require(steady["dram"] * (1 - eps) <= steady["unimem"]
+            <= steady["nvm"] * (1 + eps),
+            f"Unimem's steady time between DRAM-only and NVM-only ({steady})")
+    require(all(r[3] for r in uni) and paged[0].stats["n_replans"] > 0,
+            "the planner built plans and replanned")
+    return res
+
+
 def kernel_line(checks, paths, parent_ms=None) -> dict:
     """Each kernel's numbers at its path's shapes: decode attention one
     bf16 call at batch 4, length 160 over the (4, 1024, 1, 256) cache view;
@@ -1385,8 +1551,11 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
     flash attention forward and backward one bf16 call at the gemma-2b
     training shape; the SSD scan and its gradient one fp32 call at the
     zamba2 training shape.  Launches are the sum over the main paths
-    (``paths``: the serve and train rows of both models), each counted from
+    (``paths``: the serve and train rows of every model), each counted from
     0 just before its path ran; ``launches_by_path`` splits them.
+    ``shapes``: the same numbers at yi-6b's and chatglm3-6b's shapes
+    (decode over their serving caches at length 160, their layers' 7
+    products, their training attention).
     ``parent_ms``: the SSD forward and backward of the checkout given with
     ``--parent`` ({"ssd_scan": ms, "ssd_scan_bwd": ms}), timed in this
     run."""
@@ -1449,8 +1618,48 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
             row["parent_ms"] = (parent_ms or {}).get(name)
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
+        row["shapes"] = _six_b_shapes(checks, name)
         out.append(row)
     return {"kernels": out}
+
+
+def _six_b_shapes(checks, name) -> list:
+    """A kernel's times at yi-6b's and chatglm3-6b's shapes, bf16: decode
+    at length 160 over the (4, 1024, K, 128) cache view, a layer's 7
+    products at M = 4 summed, the flash pair at the training shapes."""
+    out = []
+    for arch, flash in (("yi-6b", YI_FLASH_SHAPE),
+                        ("chatglm3-6b", GLM_FLASH_SHAPE)):
+        acfg = get_config(arch)
+
+        def want(r):
+            s = r["shape"]
+            if r["dtype"] != "bfloat16" or r["kernel"] != name:
+                return False
+            if name == "decode_attention":
+                return (s["cache_view"] and s["length"] == 160
+                        and (s["K"], s["G"], s["D"]) == (
+                            acfg.n_kv_heads, acfg.n_heads // acfg.n_kv_heads,
+                            acfg.resolved_head_dim))
+            if name == "tiered_matmul":
+                return str(s["product"]).startswith(arch + ":")
+            if name.startswith("flash"):
+                return (s["B"], s["K"], s["G"], s["S"], s["T"],
+                        s["D"]) == flash and "ms" in r
+            return False
+        rows = [r for r in checks if want(r)]
+        if not rows:
+            continue
+        libs = [r["library_ms"] for r in rows]
+        out.append(dict(
+            arch=arch, rows=len(rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(r["bound_ms"] for r in rows),
+            bound_by=rows[0]["bound_by"],
+            library_ms=None if None in libs else sum(libs)))
+    return out
 
 
 # Run in a checkout's root: its own chip_smoke.Timer and tiered_matmul
@@ -1580,10 +1789,20 @@ def main() -> int:
     phase_runtime(timer)
     phase_parity("gemma-2b")
     phase_parity("zamba2-1.2b")
+    for arch, heads in (("yi-6b", None), ("yi-6b", 8), ("chatglm3-6b", None),
+                        ("chatglm3-6b", 16)):
+        phase_parity(arch, heads)
+    phase_sim()
     paths = [phase_serve("gemma-2b", "serve"),
              phase_train("gemma-2b", 2048, "train"),
              phase_serve("zamba2-1.2b", "serve_zamba2"),
-             phase_train("zamba2-1.2b", 4096, "train_zamba2")]
+             phase_train("zamba2-1.2b", 4096, "train_zamba2"),
+             phase_serve("yi-6b", "serve_yi"),
+             phase_train("yi-6b", 2048, "train_yi", SIX_B_TRAIN_LAYERS,
+                         SIX_B_TRAIN_LR),
+             phase_serve("chatglm3-6b", "serve_chatglm3"),
+             phase_train("chatglm3-6b", 2048, "train_chatglm3",
+                         SIX_B_TRAIN_LAYERS, SIX_B_TRAIN_LR)]
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)

@@ -13,7 +13,8 @@ on-disk format, so checkpoints move between the two packages.
   only on the previous save.
 
 Restoring onto other shardings (the reference's elastic restore) waits
-for the port of ``distributed/`` (ROADMAP.md, queue 1).
+for the sharding part of ``distributed/`` (ROADMAP.md, queue 1:
+"`distributed/`, `launch/dryrun.py` and `roofline.py`").
 """
 
 from __future__ import annotations
@@ -152,9 +153,9 @@ class CheckpointManager:
         supported on one card."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore onto shardings waits for the port of distributed/ "
-                "(ROADMAP.md, queue 1: 'distributed/, launch/dryrun.py and "
-                "roofline.py')")
+                "restore onto shardings waits for the sharding part of "
+                "distributed/ (ROADMAP.md, queue 1: 'distributed/, "
+                "launch/dryrun.py and roofline.py')")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

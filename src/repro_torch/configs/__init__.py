@@ -1,20 +1,25 @@
 """Architecture config registry.
 
-Ported so far: gemma-2b and zamba2-1.2b; the reference package's other
-eight architectures are queued in ROADMAP.md (queue 1: "The other eight
-configs and the moe family")."""
+Ported so far: gemma-2b, zamba2-1.2b, yi-6b and chatglm3-6b; the reference
+package's other six architectures are queued in ROADMAP.md (queue 1: "The
+other eight configs and the moe family")."""
 
 from typing import Dict, List
 
 from .base import ArchConfig, ShapeConfig, SHAPES
+from .chatglm3_6b import CONFIG as CHATGLM3_6B
 from .gemma_2b import CONFIG as GEMMA_2B
+from .yi_6b import CONFIG as YI_6B
 from .zamba2_1p2b import CONFIG as ZAMBA2_1P2B
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [GEMMA_2B, ZAMBA2_1P2B]}
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [
+    ZAMBA2_1P2B, YI_6B, GEMMA_2B, CHATGLM3_6B]}
 
 # short aliases for --arch flags
-ALIASES = {"gemma-2b": "gemma-2b", "gemma": "gemma-2b",
-           "zamba2-1.2b": "zamba2-1.2b", "zamba2": "zamba2-1.2b"}
+ALIASES = {"zamba2-1.2b": "zamba2-1.2b", "zamba2": "zamba2-1.2b",
+           "yi-6b": "yi-6b", "yi": "yi-6b",
+           "gemma-2b": "gemma-2b", "gemma": "gemma-2b",
+           "chatglm3-6b": "chatglm3-6b", "chatglm3": "chatglm3-6b"}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -11,8 +11,9 @@ providers that a :class:`~.session.Session` consults at every phase exit:
 * :class:`ManualSource` — the Table-2 style: the driver states each phase's
   per-object access counts explicitly (what the old imperative API passed
   to ``phase_end``).
-* the simulator's density-driven source (the reference package's
-  ``SimSource``), ported with the simulator (ROADMAP.md, queue 1).
+* :class:`~..sim.SimSource` — the discrete-event simulator's density-driven
+  physics (stream/chase service times, per-chunk densities), so that the
+  simulation engine is just a clock around it.
 * an attribution source from compiled programs (the reference package's
   ``XlaCostAnalysisSource``); its counterpart here is still to be written
   (ROADMAP.md, queue 1: "XlaCostAnalysisSource's counterpart").

@@ -370,7 +370,30 @@ def calibrate(machine: MachineProfile, *, seed: int = 0) -> CalibrationConstants
     "measured" time is the simulator executing the same access stream on the
     fast tier.  The ratio absorbs sampling loss and overlap effects.
     """
-    raise NotImplementedError(
-        "perfmodel.calibrate needs the discrete-event simulator, which is "
-        "not ported yet (ROADMAP.md, queue 1: 'sim/engine.py, "
-        "sim/workloads.py and sim/cluster.py')")
+    from ..sim.engine import simulate_stream_time, simulate_chase_time
+    from .profiler import PhaseProfiler
+    from .phase import PhaseTraceEvent
+
+    # ---- STREAM-like: touch 64 MiB sequentially on the fast tier ----------
+    n_bytes = 64 * 1024 * 1024
+    accesses = n_bytes / machine.cacheline_bytes
+    measured_bw_time = simulate_stream_time(machine, n_bytes, tier="fast")
+    prof = PhaseProfiler(machine, seed=seed)
+    prof.observe(PhaseTraceEvent(phase_index=0, time=measured_bw_time,
+                                 accesses={"stream": accesses}))
+    p = prof.profile(0, "stream")
+    predicted = (p.data_access * machine.cacheline_bytes) / machine.fast.bw
+    cf_bw, prov_bw = _cf_ratio(measured_bw_time, predicted, "cf_bw")
+
+    # ---- pChase-like: dependent accesses, single chain ---------------------
+    n_chase = 1_000_000
+    measured_lat_time = simulate_chase_time(machine, n_chase, tier="fast")
+    prof2 = PhaseProfiler(machine, seed=seed + 1)
+    prof2.observe(PhaseTraceEvent(phase_index=0, time=measured_lat_time,
+                                  accesses={"chase": float(n_chase)}))
+    p2 = prof2.profile(0, "chase")
+    predicted_lat = p2.data_access * machine.fast.lat
+    cf_lat, prov_lat = _cf_ratio(measured_lat_time, predicted_lat, "cf_lat")
+
+    return CalibrationConstants(cf_bw=float(cf_bw), cf_lat=float(cf_lat),
+                                provenance=(prov_bw, prov_lat))

@@ -143,7 +143,7 @@ def apportion(total: int, quotas: Mapping[str, float],
     :func:`capacity_shares` (byte shares capped at demand),
     :func:`channel_shares` (copy-channel counts, uncapped) and the
     cluster coordinator's link-share splits
-    (:meth:`~repro.distributed.coordinator.ClusterCoordinator`).
+    (:meth:`~..distributed.coordinator.ClusterCoordinator`).
     """
     keys = list(quotas)
     out = {k: int(quotas[k]) for k in keys}

@@ -1,3 +1,3 @@
-from .step import build_grads_step, build_train_step
+from .step import auto_microbatches, build_grads_step, build_train_step
 
-__all__ = ["build_grads_step", "build_train_step"]
+__all__ = ["auto_microbatches", "build_grads_step", "build_train_step"]

@@ -1,6 +1,7 @@
 """Training step builder: loss -> grads (microbatched) -> AdamW update.
 
-Counterpart of the reference package's ``train/step.py``.  ``microbatches
+Counterpart of the reference package's ``train/step.py``, with its
+``auto_microbatches`` (pure arithmetic).  ``microbatches
 > 1`` accumulates fp32 gradients over slices of the batch (the
 activation-memory knob that, with per-layer remat, bounds live activations
 to one microbatch x one layer).  The parameters and the optimizer state
@@ -86,3 +87,24 @@ def build_grads_step(cfg: ArchConfig, *, microbatches: int = 1,
                            torch.bfloat16)
 
     return grads_step
+
+
+def auto_microbatches(cfg: ArchConfig, global_batch: int, seq_len: int,
+                      dp: int, tp: int,
+                      *, act_budget_bytes: float = 2e9) -> int:
+    """Pick the microbatch count that bounds per-device live activations.
+
+    With per-layer remat the live set is ~ one boundary activation per layer
+    per microbatch: L x (tokens/dp) x d_model x 2 bytes / tp."""
+    tokens_per_dp = global_batch * seq_len / dp
+    per_layer = tokens_per_dp * cfg.d_model * 2 / tp
+    if cfg.is_moe:
+        # dispatch buffers / expert activations saved for backward
+        per_layer *= 4
+    total = per_layer * cfg.n_layers
+    mb = 1
+    while total / mb > act_budget_bytes and mb < global_batch:
+        mb *= 2
+    while global_batch % mb:
+        mb *= 2
+    return min(mb, global_batch)

@@ -117,11 +117,6 @@ def test_knapsack_device_dp_is_not_silently_used(monkeypatch):
         port_knapsack.solve_arrays(np.ones(3), np.ones(3, np.int64), 10)
 
 
-def test_calibration_against_the_unported_simulator_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_core.calibrate(port_core.H100_HBM_HOST)
-
-
 def test_tree_flattens_in_jax_order_with_jax_key_strings():
     import jax
     tree = {"wq": 1, "bk": 2, "a": {"z": 3, "b": [4, (5, None)]}}

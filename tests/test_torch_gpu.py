@@ -39,7 +39,11 @@ def _randn(shape, dtype, seed, scale=1.0):
     (4, 1, 8, 256, 1024, 1024, True), (2, 1, 4, 16, 64, 37, True),
     # the largest G the kernel takes
     (2, 2, 16, 128, 1024, 1, True), (2, 2, 16, 128, 1024, 33, True),
-    (2, 2, 16, 128, 1024, 161, True), (2, 2, 16, 128, 1024, 1024, True)])
+    (2, 2, 16, 128, 1024, 161, True), (2, 2, 16, 128, 1024, 1024, True),
+    # yi-6b's (G 8) and chatglm3-6b's (G 16) serving caches, D 128
+    (4, 4, 8, 128, 1024, 1, True), (4, 4, 8, 128, 1024, 160, True),
+    (4, 4, 8, 128, 1024, 1024, True), (4, 2, 16, 128, 1024, 1, True),
+    (4, 2, 16, 128, 1024, 160, True), (4, 2, 16, 128, 1024, 1024, True)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, B, K, G, D, T,
                                                length, view):
     da = importlib.import_module("repro_torch.kernels.decode_attention")
@@ -256,10 +260,15 @@ FLASH_CASES = [
     (2, 1, 8, 256, 256, 256, True),
     (1, 1, 8, 300, 300, 256, True),     # S, T multiples of no tile
     (1, 1, 8, 128, 384, 256, True),     # S != T at D = 256
-    (1, 32, 1, 512, 512, 64, True)]     # zamba2's G, K, D
+    (1, 32, 1, 512, 512, 64, True),     # zamba2's G, K, D
+    # yi-6b's G 8 and chatglm3-6b's G 16 at D 128, S and T multiples of no
+    # tile, causal and not
+    (1, 4, 8, 300, 300, 128, True), (1, 2, 16, 300, 300, 128, True),
+    (1, 2, 16, 256, 384, 128, False)]
 # q x 8: peaked scores, the running max moves between key tiles; bf16
 # only (chip_smoke.PEAKED_DTYPES says why)
-FLASH_PEAKED = [(1, 1, 8, 300, 300, 256, True), (1, 32, 1, 512, 512, 64, True)]
+FLASH_PEAKED = [(1, 1, 8, 300, 300, 256, True), (1, 32, 1, 512, 512, 64, True),
+                (1, 2, 16, 300, 300, 128, True)]
 
 
 @pytest.mark.parametrize(

@@ -1,6 +1,8 @@
-"""The port stands alone: importing ``repro_torch`` (every submodule) and
+"""The port stands alone: importing ``repro_torch`` (every submodule,
+``repro_torch.sim`` and ``repro_torch.distributed`` among them) and
 ``chip_smoke`` pulls in neither jax nor the reference package, and no
-source file of the port imports either."""
+source file of the port, ``chip_smoke.py`` or ``chip_mutants.py`` or the
+port's examples (``examples/*_torch.py``) imports either."""
 
 import ast
 import os
@@ -35,7 +37,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "assert not bad, bad\n"
         "for m in ('optim.adamw', 'data.pipeline', 'checkpoint.manager',\n"
         "          'train.loop', 'train.step', 'launch.train',\n"
-        "          'kernels.flash_attention'):\n"
+        "          'kernels.flash_attention', 'sim', 'sim.engine',\n"
+        "          'sim.workloads', 'sim.cluster', 'distributed',\n"
+        "          'distributed.coordinator'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
@@ -47,7 +51,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 def test_no_port_source_imports_jax_or_the_reference():
     offenders = []
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "chip_mutants.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -1,6 +1,9 @@
-"""The port's gemma-2b serving path against the reference, on the CPU at
-the reduced size: the reference's parameters are carried across with
-``repro_torch.convert`` and both packages decode the same prompts.
+"""The port's serving path against the reference, on the CPU at the
+reduced size: the reference's parameters are carried across with
+``repro_torch.convert`` and both packages decode the same prompts.  The
+model is gemma-2b unless a test parametrizes the ``gemma`` fixture with
+another case of ``tests/_torch_models.MODEL_CASES``: yi-6b and chatglm3-6b
+reduced and at their real G, chatglm3-6b's qkv biases drawn at random.
 
 Tolerance of the logits: 1e-5 absolute with fp32 parameters.  Both sides
 round the KV cache to bf16 the same way; what remains is fp32 summation
@@ -26,14 +29,21 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import lm as port_lm  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from _torch_models import (MODEL_CASES, random_biases,  # noqa: E402
+                           reduced_case)
 
 LOGIT_TOL = 1e-5
 
+models = pytest.mark.parametrize("gemma", sorted(MODEL_CASES), indirect=True)
+
 
 @pytest.fixture(scope="module")
-def gemma():
-    cfg = get_config("gemma-2b").reduced()
+def gemma(request):
+    """(cfg, reference parameters, port parameters): reduced gemma-2b, or
+    the case a test parametrizes (``@models``)."""
+    cfg = reduced_case(getattr(request, "param", "gemma-2b"))
     jp = ref_lm.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jp = random_biases(cfg, jp)
     tp = params_from_numpy(jax.device_get(jp), device="cpu")
     return cfg, jp, tp
 
@@ -70,6 +80,7 @@ def test_port_init_params_has_the_reference_keys_and_shapes():
     assert port_shapes == ref_shapes
 
 
+@models
 def test_decode_step_logits_match_reference(gemma):
     cfg, jp, tp = gemma
     B, S, steps = 2, 16, 6
@@ -84,8 +95,15 @@ def test_decode_step_logits_match_reference(gemma):
                                  i)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                    rtol=0, atol=LOGIT_TOL)
-    np.testing.assert_array_equal(tc["k"].float().numpy(),
-                                  np.asarray(jc["k"], np.float32))
+    got, want = tc["k"].float().numpy(), np.asarray(jc["k"], np.float32)
+    if cfg.name == "gemma-2b-smoke":
+        np.testing.assert_array_equal(got, want)
+    else:
+        # the bf16 cache holds an fp32 value rounded once: where the two
+        # packages' fp32 values (summed in another order) straddle a
+        # rounding boundary, the stored values are one bf16 ulp apart, as
+        # in test_torch_ssm's hybrid decode (seen at yi-6b-g8: 1 of 1,024)
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-30)
 
 
 def _serve_both(gemma, runtime_of=None, tenant=None, requests=1):
@@ -108,12 +126,14 @@ def _serve_both(gemma, runtime_of=None, tenant=None, requests=1):
     return out
 
 
+@models
 def test_greedy_tokens_match_reference(gemma):
     (ref_toks, _), (port_toks, _) = _serve_both(gemma)
     assert ref_toks[0].shape == (2, 9)
     np.testing.assert_array_equal(port_toks[0], ref_toks[0])
 
 
+@models
 def test_serving_under_the_runtime_matches_reference(gemma):
     """ServeEngine(runtime=..., tenant=...): same tokens and the same
     placement program in both packages over three requests."""

@@ -68,8 +68,11 @@ from repro_torch.models import lm as port_lm  # noqa: E402
 from repro_torch.models.common import rope_frequencies  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state, opt_state_bytes)
-from repro_torch.train.step import (build_grads_step,  # noqa: E402
-                                    build_train_step)
+from repro_torch.train.step import (auto_microbatches,  # noqa: E402
+                                    build_grads_step, build_train_step)
+from repro.train import step as ref_step  # noqa: E402
+from _torch_models import (MODEL_CASES, random_biases,  # noqa: E402
+                           reduced_case)
 
 port_fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -109,12 +112,19 @@ def jax_leaf_paths(tree):
             for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+models = pytest.mark.parametrize("gemma", sorted(MODEL_CASES), indirect=True)
+
+
 @pytest.fixture(scope="module")
-def gemma():
+def gemma(request):
     """Reduced gemma-2b with the reference's fp32 parameters on both
-    sides, and one batch of tokens."""
-    cfg = get_config("gemma-2b").reduced()
+    sides, and one batch of tokens; or another case of
+    ``tests/_torch_models.MODEL_CASES`` where a test parametrizes it
+    (``@models``): yi-6b and chatglm3-6b reduced and at their real G,
+    chatglm3-6b's qkv biases drawn at random."""
+    cfg = reduced_case(getattr(request, "param", "gemma-2b"))
     jp = ref_lm.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jp = random_biases(cfg, jp)
     tp = params_from_numpy(jax.device_get(jp), device="cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24))
     return cfg, jp, tp, toks
@@ -313,14 +323,16 @@ def test_rope_tables_match_reference():
     np.testing.assert_allclose(as_np(ts), as_np(js), rtol=0, atol=2e-7)
 
 
+@models
 def test_attn_forward_matches_reference(gemma):
     cfg, jp, tp, _ = gemma
     (xa,) = draws(4, (2, 24, cfg.d_model))
     jblk = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["attn"])
     tblk = {k: v[0] for k, v in tp["blocks"]["attn"].items()}
     hd = cfg.resolved_head_dim
-    jc, js = ref_rope(hd, 24, theta=cfg.rope_theta, rotary_dim=hd)
-    tc, ts = rope_frequencies(hd, 24, cfg.rope_theta, rotary_dim=hd,
+    rd = int(hd * cfg.rotary_fraction)     # chatglm3-6b: half the head
+    jc, js = ref_rope(hd, 24, theta=cfg.rope_theta, rotary_dim=rd)
+    tc, ts = rope_frequencies(hd, 24, cfg.rope_theta, rotary_dim=rd,
                               device="cpu")
     gold = ref_attn.attn_forward(jblk, jnp.asarray(xa), jc, js, cfg)
     out = port_attn.attn_forward(tblk, torch.from_numpy(xa), tc, ts, cfg)
@@ -339,6 +351,7 @@ def gemma_ref(gemma):
     return jlogits, jloss, jm, jgrads
 
 
+@models
 @pytest.mark.parametrize("remat", [False, True])
 def test_forward_loss_and_every_gradient_match_reference(gemma, gemma_ref,
                                                          remat):
@@ -500,6 +513,32 @@ def test_microbatched_step_equals_full_batch(gemma):
     for (path, a), b in zip(_tree.flatten_with_path(p1)[0], _tree.leaves(p2)):
         np.testing.assert_allclose(as_np(a), as_np(b), rtol=0, atol=2e-3,
                                    err_msg=path)
+
+
+def test_auto_microbatches_matches_reference():
+    """Pure arithmetic, copied: every reference config (MoE among them)
+    and the port's own, over batches, sequence lengths, data- and
+    tensor-parallel degrees and budgets.  Batches are powers of two: the
+    reference never returns when the power of two its first loop reaches
+    does not divide the batch (ROADMAP.md, queue 3, R5), and the port
+    keeps that unchanged."""
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro_torch.configs import ARCHS as PORT_ARCHS
+    seen = set()
+    for name, cfg in REF_ARCHS.items():
+        cfgs = [cfg] + ([PORT_ARCHS[name]] if name in PORT_ARCHS else [])
+        for batch, seq in [(b, s) for b in (1, 2, 8, 64, 256)
+                           for s in (128, 2048, 32768)]:
+            for dp, tp in ((1, 1), (2, 1), (1, 4), (8, 2), (16, 16)):
+                for budget in (2e9, 1e8):
+                    want = ref_step.auto_microbatches(
+                        cfg, batch, seq, dp, tp, act_budget_bytes=budget)
+                    for c in cfgs:
+                        assert auto_microbatches(
+                            c, batch, seq, dp, tp,
+                            act_budget_bytes=budget) == want
+                    seen.add(want)
+    assert len(seen) > 4          # the grid reaches many counts
 
 
 def test_grads_step_accumulates_in_bf16(gemma):
