@@ -43,6 +43,13 @@ command line run those mutants only.  The mutants:
   (the tiles of row tiles 2 and 3 are copied into the slots of row tiles
   0 and 1, which warps may be reading, and their own slots are never
   written; each tile's barrier still completes, so nothing hangs);
+- the SSD kernels' wide route, N or P above 64 (chip_smoke.py's wide
+  cases, forward and backward, with decays near 1 and behind a NaN fill
+  of shared memory): ``wide_last_n_slice_dropped`` (the forward's scores
+  q_I k_J^T leave the last 64-wide slice of N out),
+  ``wide_ragged_p_tile_dropped`` (the backward's dv kernel is launched over
+  the whole 64-column tiles of P only, so the ragged last tile -- the
+  mLSTM's normalizer column -- is never written);
 - tiered_matmul (its checks at the serving shapes in both dtypes, the
   edge cases and those behind a NaN fill of shared memory):
   ``split_partial_dropped`` (the merge leaves the first K split's partial
@@ -120,6 +127,12 @@ MUTANTS = {
         SSD_FWD, "copy_tile(tiles + slot * kTile, src,",
         "copy_tile(tiles + (slot > slot_v(1) ? slot - 6 : slot) * kTile, src,",
         "ssd_fwd"),
+    "wide_last_n_slice_dropped": (
+        SSD_FWD, "ring((a.N + kT - 1) / kT, issue",
+        "ring((a.N - 1) / kT, issue", "ssd_wide"),
+    "wide_ragged_p_tile_dropped": (
+        SSD_BWD, "ssd_bwd_dv_kernel<<<dim3(cg, nT, ptiles)",
+        "ssd_bwd_dv_kernel<<<dim3(cg, nT, P / kT)", "ssd_wide"),
     "split_partial_dropped": (
         MATMUL, "      v[p] = p < n_split ?", "      v[p] = 0 < p && p < n_split ?",
         "matmul"),
@@ -216,6 +229,17 @@ for r in rows + cs._matmul_edge_cases(gen):
     # rows ("ssd_bwd") or the forward's ("ssd_fwd")
     "ssd_bwd": _HEAD + _SSD.replace("ROW", "1"),
     "ssd_fwd": _HEAD + _SSD.replace("ROW", "0"),
+    # chip_smoke.py's SSD cases of the wide route, decays near 1, then
+    # behind a NaN fill of shared memory: the forward's and the backward's
+    # rows
+    "ssd_wide": _HEAD + r'''
+for c in cs.SSD_WIDE_CASES:
+    for stale in (False, True):
+        for row in cs._ssd_case(None, *c, "near1", gen, stale_nan=stale):
+            print(json.dumps(dict(case=c, kernel=row["kernel"],
+                                  stale_nan=stale, ok=row["ok"],
+                                  err=row["max_abs_err"])), flush=True)
+''',
 }
 
 

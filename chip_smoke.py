@@ -4,6 +4,8 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --parent DIR
   python3 chip_smoke.py --compare-matmul DIR
+  python3 chip_smoke.py --slstm-autograd
+  python3 chip_smoke.py --trace-drops
 
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails:
@@ -19,7 +21,9 @@ result line) if any phase fails:
                (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
-               shapes of gemma-2b and zamba2-1.2b, with kernel / plain /
+               shapes of gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b and
+               xlstm-350m (the SSD kernels' wide route; v's rows as the
+               model pads them, and unpadded), with kernel / plain /
                bound / library times and the launch floor (an empty
                kernel); the flash-attention and SSD-scan backward kernels
                against autograd through the plain forward, the SSD one's
@@ -33,10 +37,11 @@ result line) if any phase fails:
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
-5. parity   -- reduced gemma-2b, zamba2-1.2b, yi-6b and chatglm3-6b, fp32
-               weights, the card against the CPU; yi-6b and chatglm3-6b
-               also at their real G (8 and 16 query heads over one KV
-               head);
+5. parity   -- reduced gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b and
+               xlstm-350m, fp32 weights, the card against the CPU; yi-6b
+               and chatglm3-6b also at their real G (8 and 16 query heads
+               over one KV head), xlstm-350m also at one head (N 128, P 129:
+               the SSD forward's wide route);
 6. sim      -- the discrete-event simulator on the card's host: the
                quickstart's CG workload DRAM-only, NVM-only and under
                Unimem, twice (same plan digest and iteration times), and
@@ -57,7 +62,11 @@ result line) if any phase fails:
 12. train_yi, train_chatglm3 -- the same at full width, cut to 8 layers
                (the whole model's training state does not fit 80 GB),
                trained as gemma-2b is;
-13. kernels -- one line with each kernel's numbers.
+13. serve_xlstm, train_xlstm -- full-width, full-depth xlstm-350m (24
+               layers: 21 mLSTM with a 512 x 513 state a head, 3 sLSTM;
+               d_model 1024) served as gemma-2b is, and trained for 5 steps
+               of batch 2 x 2048 twice (the same losses, bit for bit);
+14. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
@@ -66,7 +75,10 @@ The serve phases require every product of a decode step to be one launch
 of the tensor-core matmul kernel, and report device operations a step.
 ``--compare-matmul DIR`` only times the serving products through this
 checkout's tiered_matmul and through that of the checkout at DIR (see
-``compare_matmul``).
+``compare_matmul``); ``--slstm-autograd`` only times one sLSTM layer's
+forward and backward with and without its written-out gradient (see
+``slstm_autograd``); ``--trace-drops`` only counts the kernels that
+torch.profiler's trace loses at a session's head (see ``trace_drops``).
 Times are CUDA-event times over many queued launches (median), each
 behind a device-side sleep so that no host delay falls inside a timed
 pair, with the L2 cache flushed before each launch, since the serving and
@@ -105,7 +117,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, fill_shared_memory_nan)
 from repro_torch.kernels.ref import decode_attention_f64  # noqa: E402
 from repro_torch.kernels import tiered_matmul as mm  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, xlstm  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -196,6 +209,19 @@ TIMED_FLASH_SHAPES = (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE,
 SIX_B_TRAIN_LAYERS = 8
 SIX_B_TRAIN_LR = 1e-4
 SSD_TRAIN_SHAPE = (2, 64, 4096, 64, 64, 256)   # B, H, S, N, P, chunk
+# xlstm-350m's train phase trains at this rate: over its 5 steps from a
+# random init the losses stayed at ~11.0 at 1e-4 and 3e-4 (gemma-2b's),
+# drifted to 10.93 at 1e-3 and fell to 10.17 at 2e-3 (H100, a sweep of
+# this phase's runs; the same bits in every run)
+XLSTM_TRAIN_LR = 2e-3
+# xlstm-350m's mLSTM training step (batch 2 x 2048): 4 heads, N = d_in / H =
+# 512, P = 513 (the head width and the normalizer's ones column), chunks of
+# 256; k and q per head.  The SSD kernels' wide route
+XLSTM_SSD_SHAPE = (2, 4, 2048, 512, 513, 256)
+# the mLSTM's v as the model lays it out: rows padded to a multiple of 4
+# floats (models/xlstm.py, _augment)
+XLSTM_V_ROW = -(-(XLSTM_SSD_SHAPE[4]) // 4) * 4
+TIMED_SSD_SHAPES = (SSD_TRAIN_SHAPE, XLSTM_SSD_SHAPE)
 
 
 def emit(obj) -> None:
@@ -265,9 +291,15 @@ TENSOR_CORE_KERNELS = {
     "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
     "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"},
     "ssd_scan": {"ssd_fwd_chunk_kernel": "HMMA",
-                 "ssd_fwd_sums_kernel": "DMMA"},
+                 "ssd_fwd_sums_kernel": "DMMA",
+                 "ssd_fwd_scores_kernel": "HMMA",
+                 "ssd_fwd_wide_kernel": "HMMA"},
     "ssd_scan_bwd": {"ssd_bwd_chunk_kernel": "HMMA",
-                     "ssd_bwd_sums_kernel": "DMMA"}}
+                     "ssd_bwd_sums_kernel": "DMMA",
+                     "ssd_bwd_scores_kernel": "DMMA",
+                     "ssd_bwd_dq_kernel": "HMMA",
+                     "ssd_bwd_dk_kernel": "HMMA",
+                     "ssd_bwd_dv_kernel": "HMMA"}}
 
 
 def _sass_counts(name: str) -> dict:
@@ -590,7 +622,8 @@ def _f64_errors(q, k, v, dout, out, grads, causal) -> dict:
 def _ssd_work(B, H, S, N, P, chunk) -> tuple:
     """Useful flops of the forward and of the backward for these shapes:
     the causal pairs of each chunk (a ragged last chunk counted as it is),
-    the inter-chunk products and the state update."""
+    the inter-chunk products and the state update (the same count on
+    either route: the wide route's scores are formed once a chunk)."""
     pairs = sum(q * (q + 1) // 2
                 for q in (min(chunk, S - s0) for s0 in range(0, S, chunk)))
     fwd = B * H * (pairs * 2 * (N + P) + S * 4 * N * P)
@@ -606,6 +639,7 @@ def _kernels_a_call(fn, calls: int = 4) -> tuple:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_GUARD_S)      # see _device_profile
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -623,19 +657,25 @@ def _kernels_a_call(fn, calls: int = 4) -> tuple:
 
 
 def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
-              stale_nan=False) -> list:
+              stale_nan=False, v_row=None) -> list:
     """Forward kernel against the plain forward (y, final state, chunk
     states) and backward kernel against autograd through the plain
     forward, with an initial state and a final-state gradient; in the
     model's layout, (B, S, H, .) seen as (B, H, S, .), k and q broadcast
     over H where ``bcast``; decays ``decay`` ("strong" or "near1", see
-    SSD_DECAY_RANGE).  Each kernel must give the same bits from a second
-    call; with ``stale_nan`` every SM's shared memory is filled with NaN
-    just before each kernel's first call, so a read of a ring slot or tile
-    that no copy wrote shows.  The forward's states and final state are
+    SSD_DECAY_RANGE); v's rows ``v_row`` floats apart (P where None).
+    Each kernel must give the same bits from a second call; with
+    ``stale_nan`` every SM's shared memory is filled with NaN just before
+    each kernel's first call, so a read of a ring slot or tile that no copy
+    wrote shows.  The forward's states and final state are
     also set beside the float64 model of its order (``_entry_states``), as
     are the fp32 plain version's.  Float64 columns of the backward at the
-    training shape; timed there with decays near 1 only."""
+    training shapes (TIMED_SSD_SHAPES); timed there with decays near 1
+    only.  At xlstm-350m's shape every gradient is held against the plain
+    version run in float64, under both decays: there the fp32 plain
+    version sums 512- and 513-deep products and itself lies up to 3e-4
+    from float64 (dq, dv; 1.8e-3 in d(log a) through autograd), so it is
+    no yardstick to 1e-4 (H100)."""
     r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                    device="cuda")
     if decay == "near1":
@@ -649,7 +689,7 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
                 for _ in range(2))
     else:
         k, q = r(B, S, H, N) * 0.3, r(B, S, H, N) * 0.3
-    v = r(B, S, H, P) * 0.3
+    v = (r(B, S, H, v_row or P) * 0.3)[..., :P]
     a, k, v, q = (t.transpose(1, 2) for t in (a, k, v, q))
     s0, dy, dfin = r(B, H, N, P) * 0.3, r(B, H, S, P), r(B, H, N, P)
     if stale_nan:
@@ -679,14 +719,19 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     # d(log a) = da * a for the decays; dk, dq per head
     g_cmp = [(g * a if i == 0 else g, w * a if i == 0 else w)
              for i, (g, w) in enumerate(zip(grads, want))]
-    if decay == "near1":    # d(log a) against the float64 plain version
+    xlstm = (B, H, S, N, P, chunk) == XLSTM_SSD_SHAPE
+    if xlstm:                       # every gradient against float64
+        gold = _ssd_grads(torch.float64, a, k, v, q, s0, dy, dfin, chunk)
+        g_cmp = [(g.double(), w) for (g, _), w in zip(g_cmp, gold)]
+        del gold
+    elif decay == "near1":          # d(log a) against float64
         g_cmp[0] = (g_cmp[0][0].double(),
                     _ssd_grads(torch.float64, a, k, v, q, s0, dy, dfin,
                                chunk)[0])
     g_err = [_compare(g, w, torch.float32, {torch.float32: SSD_TOL})
              for g, w in g_cmp]
     shape = dict(B=B, H=H, S=S, N=N, P=P, chunk=chunk, bcast=bcast,
-                 decay=decay, stale_nan=stale_nan)
+                 decay=decay, stale_nan=stale_nan, v_row=v_row or P)
     fwd = dict(phase="check", kernel="ssd_scan", dtype="float32", shape=shape,
                max_abs_err=max(e for e, _ in errs),
                y_final_states_max_abs_err=[e for e, _ in errs],
@@ -696,18 +741,22 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     bwd = dict(phase="check", kernel="ssd_scan_bwd", dtype="float32",
                shape=shape, max_abs_err=max(e for e, _ in g_err),
                dloga_dk_dv_dq_dinit_max_abs_err=[e for e, _ in g_err],
-               dloga_against="float64" if decay == "near1" else "float32",
+               dloga_against=("float64" if decay == "near1" or xlstm
+                              else "float32"),
+               grads_against="float64" if xlstm else "float32",
                bit_identical_rerun=same, tol=SSD_TOL,
                ok=all(o for _, o in g_err) and same)
     del leaves, py, pfin, pstates, want
-    if (B, H, S, N, P, chunk) != SSD_TRAIN_SHAPE:
+    if (B, H, S, N, P, chunk) not in TIMED_SSD_SHAPES:
         return [fwd, bwd]
     bwd.update(_ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads))
     # the kernel's d(log a) no further from float64 than the reference's
-    # arithmetic, the fp32 plain version
+    # arithmetic, the fp32 plain version (zamba2's shape); within SSD_TOL
+    # of float64 (xlstm's, where the check above already compared it)
     bwd["dloga_kernel_le_plain"] = (bwd["kernel_vs_f64"][0]
                                     <= bwd["plain_vs_f64"][0])
-    bwd["ok"] = bwd["ok"] and bwd["dloga_kernel_le_plain"]
+    if not xlstm:
+        bwd["ok"] = bwd["ok"] and bwd["dloga_kernel_le_plain"]
     if decay == "near1":
         nc = -(-S // chunk)
         kq = 2 * (k[:, 0].numel() if bcast else k.numel()) * 4
@@ -748,14 +797,29 @@ def _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
     return [fwd, bwd]
 
 
+# SSD shapes of the kernels' wide route (N or P above 64), untimed: the
+# one-head reduced xlstm's state (N 128, P 129) over 600 positions, the
+# last chunk ragged; N above 64 with P below it, k and q broadcast over H;
+# P above 64 with N below it (the backward's wide route only), P no
+# multiple of 4.  (B, H, S, N, P, chunk, bcast)
+SSD_WIDE_CASES = [(2, 1, 600, 128, 129, 256, False),
+                  (1, 2, 130, 96, 40, 64, True),
+                  (1, 2, 200, 40, 101, 64, False)]
+
+
 def _ssd_stale_cases() -> list:
     """SSD shapes checked behind a NaN fill of shared memory: (B, H, S, N,
-    P, chunk, bcast), the reduced config's among them."""
+    P, chunk, bcast), the reduced configs' and the wide route's among
+    them."""
     zr = get_config("zamba2-1.2b").reduced()
+    xr = get_config("xlstm-350m").reduced()
+    d_in = xr.ssm_expand * xr.d_model
     return [(2, 3, 300, 32, 64, 128, False), (1, 4, 1000, 64, 64, 256, True),
             (1, 2, 130, 6, 12, 64, True),
             (2, zr.ssm_expand * zr.d_model // zr.ssm_head_dim, 64,
-             zr.ssm_state, zr.ssm_head_dim, 64, True)]
+             zr.ssm_state, zr.ssm_head_dim, 64, True),
+            (2, xr.n_heads, 64, d_in // xr.n_heads, d_in // xr.n_heads + 1,
+             64, False)] + SSD_WIDE_CASES
 
 
 def _ssd_grads(dtype, a, k, v, q, s0, dy, dfin, chunk) -> list:
@@ -809,6 +873,16 @@ def _path_products():
     return gemma, zamba
 
 
+def _xlstm_products(cfg) -> list:
+    """xlstm-350m's decode products, (name, K, N): an mLSTM layer's 3
+    (in_proj, o_gate, out_proj), then an sLSTM layer's 2 (w_gates,
+    out_proj)."""
+    d, d_in = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    return [("in_proj", d, 3 * d_in + 2 * cfg.n_heads), ("o_gate", d, d_in),
+            ("out_proj", d_in, d), ("w_gates", d, 4 * d),
+            ("slstm_out_proj", d, d)]
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
@@ -859,6 +933,10 @@ def phase_check(timer) -> list:
             for name, K, N in _layer_products(acfg):
                 rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
                                          f"{arch}:{name}"))
+        # xlstm-350m's decode products (batch 4)
+        for name, K, N in _xlstm_products(get_config("xlstm-350m")):
+            rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
+                                     "xlstm-350m:" + name))
         for case in (
                 (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
                 (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
@@ -908,9 +986,17 @@ def phase_check(timer) -> list:
                 (1, 4, 1000, 64, 64, 256, True),      # ragged last chunk
                 # N and P no multiple of 4: the 4-byte copies
                 (1, 2, 130, 6, 12, 64, True),
-                SSD_TRAIN_SHAPE + (True,)):
-            rows += _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen)
+                *SSD_WIDE_CASES,
+                SSD_TRAIN_SHAPE + (True,), XLSTM_SSD_SHAPE + (False,)):
+            padded = (B, H, S, N, P, chunk) == XLSTM_SSD_SHAPE
+            rows += _ssd_case(timer, B, H, S, N, P, chunk, bcast, decay, gen,
+                              v_row=XLSTM_V_ROW if padded else None)
             torch.cuda.empty_cache()
+    # xlstm's shape once more with v's rows unpadded (P floats apart, the
+    # 4-byte copies): the wrapper takes any strides, timed beside the
+    # model's layout
+    rows += _ssd_case(timer, *XLSTM_SSD_SHAPE, False, "near1", gen)
+    torch.cuda.empty_cache()
     for case in _ssd_stale_cases():
         rows += _ssd_case(None, *case, "near1", gen, stale_nan=True)
     for r in rows:
@@ -1074,7 +1160,9 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     logits) and with the window in fp32 on both sides (PARITY_TOL on the
     logits, the SSM state and the window).  ``heads``: that many query
     heads over one KV head, so that the kernels run the config's real G
-    (``reduced()`` leaves G = 4)."""
+    (``reduced()`` leaves G = 4); for xlstm-350m one head makes the mLSTM's
+    state N 128 x P 129, so that the 600-position forward runs the SSD
+    forward's wide route (``reduced()`` gives N 32, P 33)."""
     cfg = get_config(arch).reduced()
     if heads is not None:
         cfg = dataclasses.replace(cfg, name=f"{cfg.name}-g{heads}",
@@ -1092,12 +1180,17 @@ def phase_parity(arch: str, heads: int = None) -> dict:
         toks[dev] = eng.generate(prompts, n_new).cpu()
     same = torch.equal(toks["cpu"], toks["cuda"])
     hybrid = cfg.block_pattern == "mamba_shared_attn"
+    xlstm = cfg.block_pattern == "xlstm"
     dec = _decode_errors(cfg, cpu, gpu, prompts, S)
     res = dict(phase="parity", arch=cfg.name, params="float32",
                G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim,
                tokens_identical=same, logits_max_abs_err=dec["logits"],
                tol=ZAMBA_DECODE_TOL if hybrid else PARITY_TOL,
                forward_tol=PARITY_TOL)
+    if xlstm:
+        d_in = cfg.ssm_expand * cfg.d_model
+        res["mlstm_state"] = dict(N=d_in // cfg.n_heads,
+                                  P=d_in // cfg.n_heads + 1)
     if hybrid:
         res["decode_bf16_window_max_abs_err"] = dec
         res["decode_fp32_window_max_abs_err"] = _decode_errors(
@@ -1119,6 +1212,11 @@ def phase_parity(arch: str, heads: int = None) -> dict:
                 "window within PARITY_TOL")
         require(res["forward_launches"]["ssd_scan"] == cfg.n_layers,
                 "the forward ran the SSD kernel on every layer")
+    elif xlstm:
+        require(res["forward_launches"]["ssd_scan"]
+                == lm._xlstm_counts(cfg)[0]
+                and not res["forward_launches"]["flash_attention"],
+                "the forward ran the SSD kernel on every mLSTM layer")
     else:
         require(res["forward_launches"]["flash_attention"] == cfg.n_layers,
                 "the forward ran the flash kernel on every layer")
@@ -1135,8 +1233,19 @@ def _expected_launches(cfg, path: str, steps: int) -> dict:
     serve_chatglm3).  train: per step, every layer's forward twice (remat)
     and its backward once: gemma-2b 36 + 18 flash launches; zamba2 14 + 7
     flash and 76 + 38 SSD launches, 380 and 190 over 5 steps; yi-6b and
-    chatglm3-6b cut to 8 layers 16 + 8 (train_yi, train_chatglm3)."""
+    chatglm3-6b cut to 8 layers 16 + 8 (train_yi, train_chatglm3).
+    xlstm-350m (21 mLSTM, 3 sLSTM layers): serve 3 x 21 + 2 x 3 = 69
+    products a step and no attention or SSD launch; train 42 + 21 SSD
+    launches a step, 210 and 105 over 5 steps, and no flash launch."""
     counts = dict.fromkeys(ops.launch_counts(), 0)
+    if cfg.block_pattern == "xlstm":
+        n_m, n_s = lm._xlstm_counts(cfg)
+        if path == "serve":
+            counts["tiered_matmul"] = (3 * n_m + 2 * n_s) * steps
+        else:
+            counts["ssd_scan"] = 2 * n_m * steps
+            counts["ssd_scan_bwd"] = n_m * steps
+        return counts
     L = cfg.n_layers
     attn = L if cfg.block_pattern == "attn" else -(-L // cfg.attn_every)
     if path == "serve":
@@ -1156,10 +1265,15 @@ def _serve_source(cfg, B, P, n_new, tenant) -> ManualSource:
     """Analytic access counts (bytes / cacheline) of one request's phases:
     every step reads all weights once (the tied head reads the whole
     embedding), the KV cache rows written so far and, for zamba2, reads and
-    writes every layer's SSM state and conv window."""
+    writes every layer's SSM state and conv window; xlstm has no KV cache
+    and reads and writes every layer's recurrent state."""
     line = H100_HBM_HOST.cacheline_bytes
     wbytes = 2 * cfg.n_params()
     n_kv, state = cfg.n_layers, 0
+    if cfg.block_pattern == "xlstm":
+        n_kv = 0
+        state = 2 * sum(t.numel() * t.element_size() for t in _tree.leaves(
+            lm.init_cache(cfg, B, 1, device="meta")))
     if cfg.block_pattern == "mamba_shared_attn":
         n_kv = -(-cfg.n_layers // cfg.attn_every)
         state = 2 * sum(t.numel() * t.element_size() for t in
@@ -1178,22 +1292,56 @@ def _serve_source(cfg, B, P, n_new, tenant) -> ManualSource:
     return src
 
 
+PROFILE_PAD = 128                   # launches, after a fill of one float
+PROFILE_GUARD_S = 0.05              # host time before the pad, after the run
+
+
+def _profile_guard() -> None:
+    """``PROFILE_GUARD_S`` of host time with the card idle, then a marker
+    kernel (``torch.cuda._sleep``'s)."""
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_GUARD_S)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
     """torch.profiler over ``run()`` (``steps`` steps): device busy time
     (union of device intervals), idle share against the unprofiled step
     time ``wall_ms``, the kernels that take the most device time and, with
     ``groups`` ({group: name substrings}), device time per group (the rest
-    under "other")."""
+    under "other").  The trace drops kernels at a profiling session's head
+    in two ways (H100): the first few of the session, more the more
+    sessions the process ran (1 to 21), and every kernel whose device time
+    stamp, converted to the host's clock, falls before the session's start
+    (the stamps lag the host's by up to ~6 ms, by a lag that changes from
+    session to session).  So each session opens with ``PROFILE_GUARD_S``
+    of host time, PROFILE_PAD throwaway launches and a marker kernel, and
+    closes with the same guard and a second marker; only the kernels
+    between the two markers count."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_GUARD_S)
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(PROFILE_PAD):
+            pad.add_(1)
+        _profile_guard()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         profiled_ms = 1e3 * (time.perf_counter() - t0) / steps
+        _profile_guard()
+        time.sleep(PROFILE_GUARD_S)
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = sorted(e.time_range.start for e in dev
+                   if "spin_kernel" in e.name)
+    require(len(marks) == 2, "the profile's two marker kernels are in its "
+            f"trace ({len(marks)})")
+    seen = sum(1 for e in dev if e.time_range.start < marks[0])
+    dev = [e for e in dev if marks[0] < e.time_range.start < marks[1]]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -1220,6 +1368,7 @@ def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
     return dict(
         ms_per_step_by_group=by_group, calls_per_step_by_group=calls_by_group,
         steps=steps, device_events=len(dev),
+        trace_dropped_at_start=PROFILE_PAD + 1 - seen,
         device_events_per_step=len(dev) / steps,
         device_busy_ms_per_step=busy_ms if dev else None,
         wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=profiled_ms,
@@ -1323,6 +1472,11 @@ def phase_serve(arch: str, name: str) -> dict:
         res["tiered_matmul_bytes_bound_ms_per_step"] = 2 * sum(
             K * N for _, K, N in _layer_products(cfg)) * cfg.n_layers \
             / HBM_BW * 1e3
+    elif cfg.block_pattern == "xlstm":
+        n_m, n_s = lm._xlstm_counts(cfg)
+        prods = [K * N for _, K, N in _xlstm_products(cfg)]
+        res["tiered_matmul_bytes_bound_ms_per_step"] = 2 * (
+            n_m * sum(prods[:3]) + n_s * sum(prods[3:])) / HBM_BW * 1e3
     res["weights_bytes_bound_ms_per_step"] = (
         sum(t.numel() * t.element_size() for t in _tree.leaves(params))
         / HBM_BW * 1e3)
@@ -1345,7 +1499,8 @@ def phase_serve(arch: str, name: str) -> dict:
 
 
 def phase_train(arch: str, S: int, name: str, layers: int = None,
-                lr: float = 3e-4) -> dict:
+                lr: float = 3e-4, rerun: bool = False,
+                profile_steps: int = 2) -> dict:
     """A full-width model, bf16 parameters from a seeded generator, AdamW
     (fp32 master and moments, lr 3e-4 unless given), per-layer remat,
     batch 2 x S tokens from the ported pipeline, 5 steps through
@@ -1353,7 +1508,9 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
     cuts the depth (the row says so under ``reduced``): at 16 bytes a
     parameter (bf16 weights and gradients, fp32 master and moments) a
     whole 6-billion-parameter model's training state outgrows the card's
-    80 GB."""
+    80 GB.  ``rerun``: the 5 steps run a second time, from the same seed,
+    and must give the same losses, bit for bit.  ``profile_steps``: steps
+    under the profiler."""
     cfg = full = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(full, n_layers=layers)
@@ -1371,6 +1528,9 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
     peak = torch.cuda.max_memory_allocated()
     rt = res.runtime
     plan = rt.plan
+    again = None
+    if rerun:
+        again = train(cfg, tcfg, opt).losses
     names = ({m.obj for m in plan.moves}
              | {o for r in plan.residents for o in r}) if plan else set()
     # a chunk of a registered object counts for its parent
@@ -1390,6 +1550,7 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
         optimizer=dict(lr=opt.lr, master_fp32=opt.master_fp32,
                        moments=opt.moments_dtype),
         losses=res.losses, grad_norms=res.grad_norms, ms_per_step=ms,
+        rerun_losses=again,
         tokens_per_s=[B * S / t for t in res.step_times],
         total_s=total_s, peak_mem_bytes=peak,
         launches=launches, launches_expected=expect,
@@ -1401,7 +1562,8 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
                      stats=res.runtime_stats))
     del res, rt, plan
     _free()
-    res_row["profile"] = _train_profile(cfg, tcfg, opt, min(ms[1:]))
+    res_row["profile"] = _train_profile(cfg, tcfg, opt, min(ms[1:]),
+                                        profile_steps)
     res_row["profile"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     print(json.dumps(res_row, default=str), flush=True)
     losses = res_row["losses"]
@@ -1409,6 +1571,8 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
     require(sum(losses[-2:]) / 2 < losses[0],
             "the mean of the last two losses is below the first")
     require(launches == expect, f"launch counts {launches} == {expect}")
+    require(again is None or again == losses,
+            f"a second run gives the same losses ({again} == {losses})")
     reg = res_row["runtime"]["registered"]
     require(res_row["runtime"]["phases"] == ["data", "step", "ckpt"]
             and "opt_state" in planned and "opt_state" in reg
@@ -1420,21 +1584,22 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
 
 TRAIN_GROUPS = {
     "flash_attention": ["flash_fwd_kernel", "flash_fwd_wgmma"],
-    "flash_attention_bwd_dq": ["dq_wgmma", "dq_kernel", "delta_kernel"],
+    # "::dq_kernel": the flash kernel's, not ssd_bwd_dq_kernel
+    "flash_attention_bwd_dq": ["dq_wgmma", "::dq_kernel", "delta_kernel"],
     "flash_attention_bwd_dkdv": ["dkdv_wgmma", "dkdv_kernel",
                                  "split_sum_kernel"],
-    "ssd_scan": ["ssd_fwd_sums_kernel", "ssd_fwd_carry_kernel",
-                 "ssd_fwd_chunk_kernel"],
-    "ssd_scan_bwd": ["ssd_bwd_sums_kernel", "ssd_bwd_carry_kernel",
-                     "ssd_bwd_chunk_kernel"],
+    # every kernel of either route: ssd_fwd_{sums,carry,chunk,scores,
+    # wide}_kernel, ssd_bwd_{sums,carry,chunk,scores,dq,dk,dv,dla}_kernel
+    "ssd_scan": ["ssd_fwd_"],
+    "ssd_scan_bwd": ["ssd_bwd_"],
     "cublas_products": ["nvjet", "gemm", "cutlass", "sm90_xmma"],
 }
 
 
-def _train_profile(cfg, tcfg, opt, wall_ms: float) -> dict:
-    """The profile of two training steps (outside the runtime), after one
-    unprofiled step, on a fresh model of the same configuration; then two
-    steps timed in halves with CUDA events: forward + backward
+def _train_profile(cfg, tcfg, opt, wall_ms: float, steps: int = 2) -> dict:
+    """The profile of ``steps`` training steps (outside the runtime), after
+    one unprofiled step, on a fresh model of the same configuration; then
+    two steps timed in halves with CUDA events: forward + backward
     (``build_grads_step``) and the AdamW update."""
     gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
     params = lm.init_params(cfg, gen, device="cuda")
@@ -1446,9 +1611,9 @@ def _train_profile(cfg, tcfg, opt, wall_ms: float) -> dict:
     step(params, state, batch)
 
     def run():
-        for _ in range(2):
+        for _ in range(steps):
             step(params, state, batch)
-    prof = _device_profile(run, 2, wall_ms, TRAIN_GROUPS)
+    prof = _device_profile(run, steps, wall_ms, TRAIN_GROUPS)
     grads_step = build_grads_step(cfg, remat=tcfg.remat)
     halves = {"forward_backward_ms": [], "adamw_update_ms": []}
     for _ in range(2):
@@ -1555,7 +1720,9 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
     0 just before its path ran; ``launches_by_path`` splits them.
     ``shapes``: the same numbers at yi-6b's and chatglm3-6b's shapes
     (decode over their serving caches at length 160, their layers' 7
-    products, their training attention).
+    products, their training attention) and at xlstm-350m's (an mLSTM and
+    an sLSTM layer's 5 decode products; the SSD pair at its training
+    shape, with ``parent_ms`` null: the parent's kernels took N <= 64).
     ``parent_ms``: the SSD forward and backward of the checkout given with
     ``--parent`` ({"ssd_scan": ms, "ssd_scan_bwd": ms}), timed in this
     run."""
@@ -1618,23 +1785,34 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
             row["parent_ms"] = (parent_ms or {}).get(name)
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
-        row["shapes"] = _six_b_shapes(checks, name)
+        row["shapes"] = _arch_shapes(checks, name)
         out.append(row)
     return {"kernels": out}
 
 
-def _six_b_shapes(checks, name) -> list:
+def _arch_shapes(checks, name) -> list:
     """A kernel's times at yi-6b's and chatglm3-6b's shapes, bf16: decode
     at length 160 over the (4, 1024, K, 128) cache view, a layer's 7
-    products at M = 4 summed, the flash pair at the training shapes."""
+    products at M = 4 summed, the flash pair at the training shapes; and
+    at xlstm-350m's: its 5 decode products at M = 4 (bf16) summed, the SSD
+    pair at its training shape (fp32, decays near 1, v's rows padded as
+    the model pads them)."""
     out = []
     for arch, flash in (("yi-6b", YI_FLASH_SHAPE),
-                        ("chatglm3-6b", GLM_FLASH_SHAPE)):
+                        ("chatglm3-6b", GLM_FLASH_SHAPE),
+                        ("xlstm-350m", None)):
         acfg = get_config(arch)
 
         def want(r):
             s = r["shape"]
-            if r["dtype"] != "bfloat16" or r["kernel"] != name:
+            if r["kernel"] != name:
+                return False
+            if name.startswith("ssd_scan"):
+                return (arch == "xlstm-350m" and "ms" in r
+                        and (s["B"], s["H"], s["S"], s["N"], s["P"],
+                             s["chunk"]) == XLSTM_SSD_SHAPE
+                        and s["v_row"] == XLSTM_V_ROW)
+            if r["dtype"] != "bfloat16":
                 return False
             if name == "decode_attention":
                 return (s["cache_view"] and s["length"] == 160
@@ -1644,21 +1822,29 @@ def _six_b_shapes(checks, name) -> list:
             if name == "tiered_matmul":
                 return str(s["product"]).startswith(arch + ":")
             if name.startswith("flash"):
-                return (s["B"], s["K"], s["G"], s["S"], s["T"],
-                        s["D"]) == flash and "ms" in r
+                return flash is not None and (
+                    s["B"], s["K"], s["G"], s["S"], s["T"],
+                    s["D"]) == flash and "ms" in r
             return False
         rows = [r for r in checks if want(r)]
         if not rows:
             continue
         libs = [r["library_ms"] for r in rows]
-        out.append(dict(
+        entry = dict(
             arch=arch, rows=len(rows),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by=rows[0]["bound_by"],
-            library_ms=None if None in libs else sum(libs)))
+            library_ms=None if None in libs else sum(libs))
+        if name.startswith("ssd_scan"):
+            for key in ("bound_tc_ms", "bytes_bound_ms", "kernels_a_call",
+                        "kernel_ms_a_call", "kernel_vs_f64", "plain_vs_f64"):
+                if key in rows[0]:
+                    entry[key] = rows[0][key]
+            entry["parent_ms"] = None
+        out.append(entry)
     return out
 
 
@@ -1730,6 +1916,127 @@ def compare_matmul(other: str) -> int:
     return 0
 
 
+def _trace_drop_session(pad, head: str, n: int = 200,
+                        gap_us: float = 0) -> dict:
+    """One profiling session of ``n`` one-float launches, ``gap_us`` of host
+    time apart, after ``head`` ("sleep": 20 ms of host time, else
+    nothing): which launches' kernels the trace lost (matched by
+    correlation id), and the device stamps' offset from their launches'."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if head == "sleep":
+            time.sleep(0.02)
+        for _ in range(n):
+            pad.add_(1)
+            t = time.perf_counter()
+            while time.perf_counter() - t < gap_us * 1e-6:
+                pass
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    res = prof.profiler.kineto_results
+    evs, start = res.events(), res.trace_start_ns()
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    launch = sorted((e.start_ns(), e.correlation_id()) for e in evs
+                    if e.device_type() == cpu and "LaunchKernel" in e.name())
+    kern = {e.correlation_id(): e.start_ns() for e in evs
+            if e.device_type() == gpu}
+    seen = [c in kern for _, c in launch]
+    first = seen.index(True) if True in seen else len(seen)
+    lag = sorted(kern[c] - t for t, c in launch if c in kern)
+    return dict(launches=len(launch), kernels=len(kern),
+                dropped_at_head=first, dropped=seen.count(False),
+                stamp_minus_launch_us=[lag[0] / 1e3, lag[len(lag) // 2] / 1e3]
+                if lag else None,
+                first_launch_after_start_us=(launch[0][0] - start) / 1e3
+                if launch else None)
+
+
+def trace_drops() -> int:
+    """``python3 chip_smoke.py --trace-drops``: 16 rounds in one process,
+    each 2 s of matmuls, three short profiling sessions, then three
+    sessions of 200 launches: 25 µs apart ("plain"), the same after 20 ms
+    of host time ("sleep"), and back to back ("burst"); one JSON line a
+    session (see ``_trace_drop_session``)."""
+    phase_device()
+    x = torch.randn(4096, 4096, device="cuda")
+    pad = torch.zeros(1, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(16):
+        while time.perf_counter() - t0 < 2 * (i + 1):
+            for _ in range(20):
+                x @ x
+            torch.cuda.synchronize()
+        for _ in range(3):
+            _trace_drop_session(pad, "", 20)
+        for way, head, gap in (("plain", "", 25), ("sleep", "sleep", 25),
+                               ("burst", "", 0)):
+            emit(dict(phase="trace_drops", round=i, way=way,
+                      age_s=time.perf_counter() - t0,
+                      **_trace_drop_session(pad, head, 200, gap)))
+    return 0
+
+
+def slstm_autograd() -> int:
+    """``python3 chip_smoke.py --slstm-autograd``: one full-width sLSTM
+    layer of xlstm-350m (batch 2 x 2048, bf16 weights from a seed),
+    forward and backward on the host clock, twice each: through
+    ``slstm_forward`` (the cell's gradient written out) and through the
+    cell under plain autograd, each with and without the remat's
+    checkpoint; then the largest distance of x's gradient between the two
+    (x and its gradient are bf16)."""
+    from torch.utils.checkpoint import checkpoint
+    phase_device()
+    cfg = get_config("xlstm-350m")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    blk = {k: t[0].clone().requires_grad_()
+           for k, t in xlstm.init_slstm_params(gen, cfg, 1).items()}
+    x = torch.randn((2, 2048, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    gy = torch.randn(x.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+
+    def cell_loop(p, x, cfg):
+        B, S, d = x.shape
+        gates = xlstm._gate_inputs(x, p["w_gates"], cfg.n_heads,
+                                   torch.matmul)
+        r = p["r_gates"].float()
+        carry = (gates.new_zeros((B, cfg.n_heads, r.shape[1])),) * 4
+        hs = []
+        for g_t in gates.unbind(1):
+            carry = xlstm._slstm_cell(r, carry, g_t)
+            hs.append(carry[0])
+        h = torch.stack(hs, 1).reshape(B, S, d).to(x.dtype)
+        return torch.matmul(rms_norm(h, p["norm"]), p["out_proj"])
+
+    grads = {}
+    for _ in range(2):
+        for way, fn in (("function", xlstm.slstm_forward),
+                        ("autograd", cell_loop)):
+            for remat in (False, True):
+                for t in (*blk.values(), x):
+                    t.grad = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = (checkpoint(fn, blk, x, cfg, use_reentrant=False)
+                     if remat else fn(blk, x, cfg))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                y.backward(gy)
+                torch.cuda.synchronize()
+                grads[way] = x.grad.float()
+                emit(dict(phase="slstm_autograd", way=way, remat=remat,
+                          forward_s=t1 - t0,
+                          backward_s=time.perf_counter() - t1))
+                del y
+    emit(dict(phase="slstm_autograd_grad",
+              x_grad_max_abs=grads["autograd"].abs().max().item(),
+              function_vs_autograd_max_abs=(
+                  grads["function"] - grads["autograd"]).abs().max().item()))
+    return 0
+
+
 # Run in a checkout's root: its own chip_smoke.Timer, SSD forward and SSD
 # backward at the zamba2 training shape, decays near 1; prints one JSON
 # object.
@@ -1778,6 +2085,10 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--compare-matmul":
         return compare_matmul(sys.argv[2])
+    if sys.argv[1:] == ["--slstm-autograd"]:
+        return slstm_autograd()
+    if sys.argv[1:] == ["--trace-drops"]:
+        return trace_drops()
     parent = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--parent" \
         else None
     t0 = time.perf_counter()
@@ -1790,7 +2101,8 @@ def main() -> int:
     phase_parity("gemma-2b")
     phase_parity("zamba2-1.2b")
     for arch, heads in (("yi-6b", None), ("yi-6b", 8), ("chatglm3-6b", None),
-                        ("chatglm3-6b", 16)):
+                        ("chatglm3-6b", 16), ("xlstm-350m", None),
+                        ("xlstm-350m", 1)):
         phase_parity(arch, heads)
     phase_sim()
     paths = [phase_serve("gemma-2b", "serve"),
@@ -1802,7 +2114,11 @@ def main() -> int:
                          SIX_B_TRAIN_LR),
              phase_serve("chatglm3-6b", "serve_chatglm3"),
              phase_train("chatglm3-6b", 2048, "train_chatglm3",
-                         SIX_B_TRAIN_LAYERS, SIX_B_TRAIN_LR)]
+                         SIX_B_TRAIN_LAYERS, SIX_B_TRAIN_LR),
+             phase_serve("xlstm-350m", "serve_xlstm"),
+             # one profiled step: the sLSTM's loop is ~10^5 launches a step
+             phase_train("xlstm-350m", 2048, "train_xlstm", lr=XLSTM_TRAIN_LR,
+                         rerun=True, profile_steps=1)]
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)

@@ -59,6 +59,17 @@
 //   (B, S, N) tensor broadcast over H (stride 0), and its (B, S, H, .)
 //   layout need no copy; y is written in v's layout.
 // * No atomics, a fixed order of every sum: the same bits on every run.
+//
+// A state wider than one tile (N > 64: xLSTM's mLSTM, N 512 and P 513 at
+// B 2, H 4, S 2048, Q 256) takes the wide route: the sums kernel gains a
+// grid axis over 64-row tiles of N (8 x 9 tiles a chunk there), the carry
+// only its sizes, and the chunk kernel's work goes to two launches (the
+// "wide" section below): 21.5 GFLOP of useful work there, 0.321 ms at the
+// fp32 FMA rate, 0.130 ms at the 3xTF32 tensor rate, against 0.063 ms to
+// move its bytes.  P 513's last tile is one column wide: the wide route's
+// kernels copy a ragged group of columns 16 bytes at a time where the rows
+// are 16-byte aligned (copy_tile<true>), the sums kernel such a tile 4
+// bytes at a time; the model pads its rows to 516 floats.
 
 #include "ssd_mma.cuh"
 
@@ -81,11 +92,16 @@ struct FwdArgs {
   View va, vk, vv, vq, vy;
   int H, S, N, P, Q, nc;
   bool wk, wv, wq, wy;     // 16-byte copies (k, v, q), 8-byte stores (y)
+  // the wide route only
+  float* scores;           // (B, H, nc, Qp, Qp): M o (q k^T) of each chunk
+  int Qp;                  // Q rounded up to a whole tile
+  bool wS;                 // 16-byte copies of the states (P % 4 == 0)
 };
 
 // ---------------------------------------------------------------- sums
-// dS_c = sum_j e^{cum_L - cum_j} k_j v_j^T (N x 64 columns of P) in fp64
-// on DMMA, and e^{cum_L}, for one (b, h, chunk, column tile).
+// dS_c = sum_j e^{cum_L - cum_j} k_j v_j^T (64 rows of N x 64 columns of
+// P) in fp64 on DMMA, and e^{cum_L}, for one (b, h, chunk, column tile,
+// row tile).
 __global__ void __launch_bounds__(kThreads) ssd_fwd_sums_kernel(FwdArgs a) {
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);   // k[2], v[2]: a ring of
@@ -98,12 +114,15 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_sums_kernel(FwdArgs a) {
   const long long bhc = blockIdx.x, bh = bhc / a.nc;
   const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
   const int p0 = blockIdx.y * kT, PT = min(kT, a.P - p0);
+  const int n0 = blockIdx.z * kT, NT = min(kT, a.N - n0);
   const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
   const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
-  const Rows64 x{a.k + b * a.vk.b + h * a.vk.h + s0 * a.vk.s, a.vk.s, a.N,
-                 a.wk};
+  // 16-byte copies of a tile whose width is a multiple of 4 (on the wide
+  // route the flags check only the rows' alignment)
+  const Rows64 x{a.k + b * a.vk.b + h * a.vk.h + s0 * a.vk.s + n0, a.vk.s,
+                 NT, a.wk && NT % 4 == 0};
   const Rows64 y{a.v + b * a.vv.b + h * a.vv.h + s0 * a.vv.s + p0, a.vv.s,
-                 PT, a.wv};
+                 PT, a.wv && PT % 4 == 0};
   issue_rows(kt, vt, x, y, 0, Qc);
   const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
   w[tid] = cs;
@@ -111,9 +130,11 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_sums_kernel(FwdArgs a) {
   const double cL = w[Qc - 1];
   __syncthreads();
   w[tid] = tid < Qc ? exp(cL - cs) : 0.0;
-  if (tid == Qc - 1 && blockIdx.y == 0) a.decay[bhc] = exp(cs);
+  if (tid == Qc - 1 && blockIdx.y == 0 && blockIdx.z == 0)
+    a.decay[bhc] = exp(cs);
   outer_sum_f64(kt, vt, vd, w, x, y, Qc,
-                a.sums + bhc * a.N * a.P + p0, a.P, a.N, PT);
+                a.sums + bhc * a.N * a.P + (long long)n0 * a.P + p0, a.P, NT,
+                PT);
 }
 
 // ---------------------------------------------------------------- carry
@@ -404,6 +425,135 @@ ssd_fwd_chunk_kernel(FwdArgs a) {
   hopper::cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------- wide
+// The route for N > 64 (csrc/ssd_mma.cuh, "wide route").  One chunk's q
+// and k no longer fit shared memory (a 64-row tile of q is 128 KB at N
+// 512), so the chunk kernel's work is split in two launches:
+// * ssd_fwd_scores_kernel, one block per (b, h, chunk, tile pair I >= J):
+//   the masked scores M o (q_I k_J^T), summed over N in 64-wide slices,
+//   into a Qp x Qp fp32 matrix a chunk (256 KB at Q 256);
+// * ssd_fwd_wide_kernel, one block per (b, h, chunk, 64 columns of P, row
+//   tile I): e^{cum_i} q_i S_c summed over N in slices, then the scores of
+//   the pairs (I, J <= I) times v_J.
+// Forming the scores once per chunk, rather than in each of the P tiles'
+// blocks (9 at P 513), saves 8/9 of the scores' products -- at xLSTM's
+// shape (N 512, P 513, Q 256) 2.1 of the forward's 21.5 GFLOP, recomputed
+// 9 times they would be 19 GFLOP more -- for 16.8 MB of scores written
+// and read back (B 2, H 4, S 2048).  Every product is 3xTF32, each 64-deep
+// slice summed from zero and added in fp32.
+
+// Shared memory of the wide route's kernels: the ring, then e^{cum} (or
+// cum / ln 2) and a scan's scratch.
+constexpr int kWideSmem = kRingSmem + 8 * (kMaxQ + 8);
+
+__global__ void __launch_bounds__(kThreads)
+ssd_fwd_scores_kernel(FwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* at = reinterpret_cast<float*>(smem4);   // q_I slices, ring stages
+  float* bt = at + 2 * kTile;                    // k_J slices
+  double* cum2 = reinterpret_cast<double*>(bt + 2 * kTile);  // cum / ln 2
+  double* scratch = cum2 + kMaxQ;
+
+  const int tid = threadIdx.x, m0 = wide_m0(), n0 = wide_n0();
+  const long long bhc = blockIdx.x, bh = bhc / a.nc;
+  const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
+  const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
+  int I, J;
+  tile_pair(blockIdx.y, I, J);
+  if (I * kT >= Qc) return;            // a ragged last chunk has fewer tiles
+  const int rI = min(kT, Qc - I * kT), rJ = min(kT, Qc - J * kT);
+  const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
+  const float* Qi = a.q + b * a.vq.b + h * a.vq.h + (s0 + I * kT) * a.vq.s;
+  const float* Kj = a.k + b * a.vk.b + h * a.vk.h + (s0 + J * kT) * a.vk.s;
+  auto issue = [&](int s) {
+    const int n = s * kT, cols = min(kT, a.N - n);
+    copy_tile<true>(at + (s & 1) * kTile, Qi + n, a.vq.s, rI, cols, a.wq);
+    copy_tile<true>(bt + (s & 1) * kTile, Kj + n, a.vk.s, rJ, cols, a.wk);
+    hopper::cp_async_commit();
+  };
+  issue(0);
+  cum2[tid] = block_scan(log_decay(A, a.va.s, tid, Qc), scratch)
+              * 1.4426950408889634;
+  Acc<2, 2> sc;
+  zero_acc(sc);
+  ring((a.N + kT - 1) / kT, issue, [&](int s) {      // q_I k_J^T
+    mm3<kSplit>(sc, Rows{at + (s & 1) * kTile}, Cols{bt + (s & 1) * kTile},
+                m0, n0, 0, kT);
+  });
+  // the decay mask e^{cum_i - cum_j}, formed where i >= j only
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = I * kT + frag_row(m0, mi, e);
+        const int col = J * kT + frag_col(n0, ni, e);
+        sc[mi][ni][e] = col <= r && r < Qc
+            ? sc[mi][ni][e] * exp2f((float)(cum2[r] - cum2[col])) : 0.f;
+      }
+  store_block(a.scores + bhc * a.Qp * a.Qp + (long long)I * kT * a.Qp
+              + J * kT, sc, a.Qp, m0, n0, kT, kT);
+}
+
+__global__ void __launch_bounds__(kThreads) ssd_fwd_wide_kernel(FwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* at = reinterpret_cast<float*>(smem4);   // q_I slices, then scores
+  float* bt = at + 2 * kTile;                    // S_c slices, then v_J
+  double* scratch = reinterpret_cast<double*>(bt + 2 * kTile);
+  float* ecum = reinterpret_cast<float*>(scratch + 8);   // e^{cum_i}
+
+  const int tid = threadIdx.x, m0 = wide_m0(), n0 = wide_n0();
+  const long long bhc = blockIdx.x, bh = bhc / a.nc;
+  const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
+  const int p0 = blockIdx.y * kT, PT = min(kT, a.P - p0), I = blockIdx.z;
+  const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
+  if (I * kT >= Qc) return;
+  const int rI = min(kT, Qc - I * kT), nN = (a.N + kT - 1) / kT;
+  const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
+  const float* Qi = a.q + b * a.vq.b + h * a.vq.h + (s0 + I * kT) * a.vq.s;
+  const float* V = a.v + b * a.vv.b + h * a.vv.h + s0 * a.vv.s + p0;
+  const float* St = a.states + bhc * a.N * a.P + p0;
+  const float* Sc = a.scores + bhc * a.Qp * a.Qp + (long long)I * kT * a.Qp;
+  // steps [0, nN): q_I and S_c over a slice of N; then [nN, nN + I]: the
+  // scores of (I, J) and v_J, J = step - nN
+  auto issue = [&](int s) {
+    float* x = at + (s & 1) * kTile;
+    float* z = bt + (s & 1) * kTile;
+    if (s < nN) {
+      const int n = s * kT, rows = min(kT, a.N - n);
+      copy_tile<true>(x, Qi + n, a.vq.s, rI, rows, a.wq);
+      copy_tile<true>(z, St + (long long)n * a.P, a.P, rows, PT, a.wS);
+    } else {
+      const int J = s - nN;
+      copy_tile<true>(x, Sc + J * kT, a.Qp, kT, kT, true);
+      copy_tile<true>(z, V + (long long)J * kT * a.vv.s, a.vv.s,
+                min(kT, Qc - J * kT), PT, a.wv);
+    }
+    hopper::cp_async_commit();
+  };
+  issue(0);
+  const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
+  ecum[tid] = tid < Qc ? (float)exp(cs) : 0.f;
+  Acc<2, 2> y;
+  zero_acc(y);
+  ring(nN + I + 1, issue, [&](int s) {
+    mm3<kSplit>(y, Rows{at + (s & 1) * kTile}, Rows{bt + (s & 1) * kTile},
+                m0, n0, 0, kT);
+    if (s == nN - 1) {                 // e^{cum_i} q_i S_c
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[mi][ni][e] *= ecum[I * kT + frag_row(m0, mi, e)];
+    }
+  });
+  store_block(a.y + b * a.vy.b + h * a.vy.h + (s0 + I * kT) * a.vy.s + p0, y,
+              (int)a.vy.s, m0, n0, rI, PT);
+}
+
 bool aligned(const float* p, long long sb, long long sh, long long ss,
              int cols, int elems) {
   return reinterpret_cast<uintptr_t>(p) % (4 * elems) == 0
@@ -411,14 +561,30 @@ bool aligned(const float* p, long long sb, long long sh, long long ss,
          && cols % elems == 0;
 }
 
+// Doubles of the `work` buffer ssd_scan_fwd_launch needs: each chunk's
+// sum dS_c and e^{cum_L}, and for N > 64 (the wide route) each chunk's
+// Qp x Qp fp32 scores after them, 16-byte aligned.
+long long fwd_work(long long chunks, int N, int P, int Q) {
+  const long long sums = chunks * ((long long)N * P + 1);
+  if (N <= kT) return sums;
+  const long long Qp = (Q + kT - 1) / kT * kT;
+  return (sums + 1) / 2 * 2 + chunks * Qp * Qp / 2;
+}
+
 }  // namespace
+
+extern "C" long long ssd_scan_fwd_work(int B, int H, int S, int N, int P,
+                                       int Q) {
+  return fwd_work((long long)B * H * ((S + Q - 1) / Q), N, P, Q);
+}
 
 // Strides are element strides of the (B, H, S) axes of a, k, v, q and y;
 // the last axis of k, v, q, y has unit stride.  init (B,H,N,P) may be
 // null; final_state (B,H,N,P) and states (B,H,nc,N,P) are contiguous and
-// both written; work holds B*H*nc*(N*P + 1) doubles.  N <= 64, any P, 1 <=
-// Q <= 256.  Three launches on `stream`.  Returns a CUDA error code (0 on
-// success).
+// both written; work holds ssd_scan_fwd_work(B, H, S, N, P, Q) doubles.
+// Any N and P, 1 <= Q <= 256: N <= 64 takes the chunk kernel, N > 64 the
+// wide route.  Three launches on `stream` (four on the wide route).
+// Returns a CUDA error code (0 on success).
 extern "C" int ssd_scan_fwd_launch(
     const float* a, const float* k, const float* v, const float* q,
     const float* init, float* y, float* final_state, float* states,
@@ -429,17 +595,27 @@ extern "C" int ssd_scan_fwd_launch(
     long long qb, long long qh, long long qs,
     long long yb, long long yh, long long ys,
     int B, int H, int S, int N, int P, int Q, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || N < 1 || N > kT || P < 1 || Q < 1
-      || Q > kMaxQ || states == nullptr || work == nullptr)
+  if (B < 1 || H < 1 || S < 1 || N < 1 || P < 1 || Q < 1 || Q > kMaxQ
+      || states == nullptr || work == nullptr)
     return (int)cudaErrorInvalidValue;
   const int nc = (S + Q - 1) / Q;
   const long long chunks = (long long)B * H * nc;
+  const bool wide = N > kT;
+  const int nT = (Q + kT - 1) / kT;
+  float* scores = wide ? reinterpret_cast<float*>(
+      work + (chunks * ((long long)N * P + 1) + 1) / 2 * 2) : nullptr;
+  // the wide route's own kernels copy a ragged last group of columns 16
+  // bytes at a time too (copy_tile<true>), so only the rows' alignment
+  // counts there; the sums kernel copies a ragged tile 4 bytes at a time
   FwdArgs args{a, k, v, q, init, y, final_state, states,
                work, work + chunks * N * P,
                {ab, ah, as}, {kb, kh, ks}, {vb, vh, vs}, {qb, qh, qs},
                {yb, yh, ys}, H, S, N, P, Q, nc,
-               aligned(k, kb, kh, ks, N, 4), aligned(v, vb, vh, vs, P, 4),
-               aligned(q, qb, qh, qs, N, 4), aligned(y, yb, yh, ys, P, 2)};
+               aligned(k, kb, kh, ks, wide ? 0 : N, 4),
+               aligned(v, vb, vh, vs, wide ? 0 : P, 4),
+               aligned(q, qb, qh, qs, wide ? 0 : N, 4),
+               aligned(y, yb, yh, ys, P, 2),
+               scores, nT * kT, P % 4 == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = chunk_smem_bytes(Q);
   cudaError_t err = cudaFuncSetAttribute(
@@ -449,16 +625,32 @@ extern "C" int ssd_scan_fwd_launch(
     err = cudaFuncSetAttribute(ssd_fwd_chunk_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_fwd_scores_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWideSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_fwd_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWideSmem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N * P + kThreads - 1) / kThreads;
-  const int ptiles = (P + kT - 1) / kT;
+  const int ptiles = (P + kT - 1) / kT, ntiles = (N + kT - 1) / kT;
   if (chunks > 0x7fffffffLL || (long long)B * H * blocks > 0x7fffffffLL
-      || ptiles > 65535)
+      || ptiles > 65535 || ntiles > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)chunks, ptiles);
-  ssd_fwd_sums_kernel<<<grid, kThreads, kSumsSmem, st>>>(args);
+  ssd_fwd_sums_kernel<<<dim3((unsigned)chunks, ptiles, ntiles), kThreads,
+                        kSumsSmem, st>>>(args);
   ssd_fwd_carry_kernel<<<(unsigned)(B * H * blocks), kThreads, 0, st>>>(
       args, blocks);
-  ssd_fwd_chunk_kernel<<<grid, kThreads, smem, st>>>(args);
+  if (!wide) {
+    ssd_fwd_chunk_kernel<<<dim3((unsigned)chunks, ptiles), kThreads, smem,
+                           st>>>(args);
+  } else {
+    ssd_fwd_scores_kernel<<<dim3((unsigned)chunks, nT * (nT + 1) / 2),
+                            kThreads, kWideSmem, st>>>(args);
+    ssd_fwd_wide_kernel<<<dim3((unsigned)chunks, ptiles, nT), kThreads,
+                          kWideSmem, st>>>(args);
+  }
   return (int)cudaGetLastError();
 }

@@ -72,6 +72,13 @@
 // * In double, as the plain version: log a and its running sum cum, Z, R,
 //   C, X, Y, U, the dS carry, <dS, S> and both scans.  The products use
 //   dS rounded to fp32.
+//
+// A state wider than one tile (N or P > 64: xLSTM's mLSTM, N 512, P 513 at
+// B 2, H 4, S 2048, Q 256) takes the wide route: the sums kernel gains
+// grid axes over tiles of P and N, and the chunk kernel's work goes to
+// five launches (the "wide" section below).  45.2 GFLOP of useful work
+// there: 0.675 ms at the fp32 FMA rate, 0.274 ms at the 3xTF32 tensor
+// rate, against 0.093 ms to move its bytes.
 
 #include "ssd_mma.cuh"
 
@@ -94,271 +101,18 @@ struct BwdArgs {
   View va, vk, vv, vq, vdy;
   int H, S, N, P, Q, nc;
   bool wk, wv, wq, wdy;    // 16-byte copies allowed
+  // the wide route only: Z's row sums rz (B, H, nc, nT, Qp) by column tile
+  // and column sums cz by row tile, X's and Y's partials xp, yp (B, H, nc,
+  // nN, Qp) by tile of N, and M o (dy v^T), M o (q k^T) (B, H, nc, Qp, Qp)
+  double* rz; double* cz; double* xp; double* yp;
+  float* md; float* ms;
+  int Qp, nN;              // Q rounded up to a whole tile; tiles of N
+  bool wS;                 // 16-byte copies of the states (P % 4 == 0)
 };
-
-// Element (x, y) of an operand held in a swizzled tile: tile element
-// (x, y) (Rows), or (y, x) for a transposed one (Cols).  x is the row of
-// an A operand or the depth of a B operand.
-template <bool kTrans>
-struct Opd {
-  static constexpr bool kT = kTrans;
-  const float* p;
-  __device__ __forceinline__ float operator()(int x, int y) const {
-    return kTrans ? p[tile_at(y, x)] : p[tile_at(x, y)];
-  }
-};
-using Rows = Opd<false>;
-using Cols = Opd<true>;
-
-// A warp's accumulators: its (16 MT) x (8 NT) block of a 64 x 64 tile, as
-// MT x NT fragments of 16 x 8.
-template <int MT, int NT>
-using Acc = float[MT][NT][4];
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(Acc<MT, NT>& x) {
-#pragma unroll
-  for (int i = 0; i < 4 * MT * NT; ++i) (&x[0][0][0])[i] = 0.f;
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void add_acc(Acc<MT, NT>& x,
-                                        const Acc<MT, NT>& y) {
-#pragma unroll
-  for (int i = 0; i < 4 * MT * NT; ++i) (&x[0][0][0])[i] += (&y[0][0][0])[i];
-}
-
-// Row and column in the tile of element e of fragment (mi, ni) of the
-// warp's block at (m0, n0).
-__device__ __forceinline__ int frag_row(int m0, int mi, int e) {
-  return m0 + 16 * mi + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int frag_col(int n0, int ni, int e) {
-  return n0 + 8 * ni + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
-// The tile offset of a fragment element at outer index o (a row of A, a
-// column of B; o = lane / 4 mod 8) and depth y < 8: tile (o, y), or tile
-// (y, o) when the tile runs along the depth.  A depth k (a multiple of 8)
-// adds depth_shift(k) to every such offset, so the offsets are fixed for
-// the thread and a depth step costs one add.
-template <bool kAlongDepth>
-__device__ __forceinline__ int frag_off(int o, int y) {
-  return kAlongDepth ? tile_at(y, o) : tile_at(o, y);
-}
-template <bool kAlongDepth>
-__device__ __forceinline__ int depth_shift(int k) {
-  if (kAlongDepth) return k * 64;
-  const int s = swz((threadIdx.x & 31) >> 2);
-  return (k ^ s) - s;
-}
-
-template <int MT, int NT>
-struct Frags {
-  uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
-};
-
-// Depths 2t and 2t+1 of an element, at offsets off[0] and off[1]: side by
-// side in a tile along the row (one 8-byte read), in two rows of a tile
-// along the depth.
-template <bool kAlongDepth>
-__device__ __forceinline__ float2 pair_at(const float* p,
-                                          const int (&off)[2]) {
-  if (kAlongDepth) return make_float2(p[off[0]], p[off[1]]);
-  return *reinterpret_cast<const float2*>(p + off[0]);
-}
-
-// The warp's fragments of A (rows m0.., 16 MT) and B (columns n0.., 8 NT),
-// depth step by depth step, split in TF32 hi + lo (kExact: lo rounded).
-template <class TA, class TB, bool kExact, int MT, int NT>
-struct Loader {
-  static constexpr bool kAD = TA::kT, kBD = !TB::kT;   // along the depth
-  const float* pa;
-  const float* pb;
-  int oa[MT][2][2], ob[NT][2];
-
-  __device__ __forceinline__ Loader(TA A, TB B, int m0, int n0)
-      : pa(A.p), pb(B.p) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          oa[mi][h][d] = frag_off<kAD>(m0 + 16 * mi + 8 * h + g, 2 * t + d);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        ob[ni][d] = frag_off<kBD>(n0 + 8 * ni + g, 2 * t + d);
-    }
-  }
-
-  __device__ __forceinline__ void load(Frags<MT, NT>& f, int k) const {
-    const float* a = pa + depth_shift<kAD>(k);
-    const float* b = pb + depth_shift<kBD>(k);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 x = pair_at<kAD>(a, oa[mi][h]);
-        split_tf32<kExact>(x.x, f.ah[mi][h], f.al[mi][h]);          // 2t
-        split_tf32<kExact>(x.y, f.ah[mi][h + 2], f.al[mi][h + 2]);  // 2t+1
-      }
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const float2 x = pair_at<kBD>(b, ob[ni]);
-      split_tf32<kExact>(x.x, f.bh[ni][0], f.bl[ni][0]);
-      split_tf32<kExact>(x.y, f.bh[ni][1], f.bl[ni][1]);
-    }
-  }
-};
-
-// lo += the lo terms, hi += hi hi, at one depth step; the fragments'
-// products interleaved, so that no accumulator waits on its last product
-template <int MT, int NT>
-__device__ __forceinline__ void mma3(Acc<MT, NT>& hi, Acc<MT, NT>& lo,
-                                     const Frags<MT, NT>& f) {
-  if (kSplit) {
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        mma_tf32(lo[mi][ni], f.al[mi], f.bh[ni]);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        mma_tf32(lo[mi][ni], f.ah[mi], f.bl[ni]);
-  }
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-      mma_tf32(hi[mi][ni], f.ah[mi], f.bh[ni]);
-}
-
-// acc += A B over depth [k0, k1) (multiples of 8), for the warp's block at
-// (m0, n0), for the products whose error is not summed further (dq, dk, dv
-// and k dS): summed from zero and added to acc in fp32, so that the tensor
-// cores' truncating adds run over one product only.
-template <int MT, int NT, class TA, class TB>
-__device__ __forceinline__ void mm3(Acc<MT, NT>& acc, TA A, TB B, int m0,
-                                    int n0, int k0, int k1) {
-  const Loader<TA, TB, false, MT, NT> ld(A, B, m0, n0);
-  Acc<MT, NT> part;
-  zero_acc(part);
-  for (int k = k0; k < k1; k += 8) {
-    Frags<MT, NT> f;
-    ld.load(f, k);
-    mma3(part, part, f);
-  }
-  add_acc(acc, part);
-}
-
-// acc = A B over depth [0, K) (a multiple of 8), for the products whose
-// every rounding reaches d(log a) (the scores, S dy and dS v): lo parts
-// rounded, the hi products of each 16 of the depth summed from zero and
-// added in fp32, the lo products in their own accumulator (the note at the
-// top).
-template <int MT, int NT, class TA, class TB>
-__device__ __forceinline__ void mm3_exact(Acc<MT, NT>& acc, TA A, TB B,
-                                          int m0, int n0, int K) {
-  const Loader<TA, TB, true, MT, NT> ld(A, B, m0, n0);
-  Acc<MT, NT> lo;
-  zero_acc(acc);
-  zero_acc(lo);
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    Acc<MT, NT> hi;
-    zero_acc(hi);
-    for (int k = k0; k < min(k0 + 16, K); k += 8) {
-      Frags<MT, NT> f;
-      ld.load(f, k);
-      mma3(hi, lo, f);
-    }
-    add_acc(acc, hi);
-  }
-  add_acc(acc, lo);
-}
-
-// The warp's block of a (rows, cols)-valid tile of a row-major matrix
-// with row stride ld: into acc (0 outside), or out of it.
-template <int MT, int NT>
-__device__ __forceinline__ void load_block(Acc<MT, NT>& acc,
-                                           const float* src, int ld, int m0,
-                                           int n0, int rows, int cols) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(m0, mi, e), c = frag_col(n0, ni, e);
-        acc[mi][ni][e] = r < rows && c < cols ? src[(long long)r * ld + c]
-                                              : 0.f;
-      }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void store_block(float* dst,
-                                            const Acc<MT, NT>& acc, int ld,
-                                            int m0, int n0, int rows,
-                                            int cols) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(m0, mi, e), c = frag_col(n0, ni, e);
-        if (r < rows && c < cols) dst[(long long)r * ld + c] = acc[mi][ni][e];
-      }
-}
-
-// The warp's block into a swizzled tile.
-template <int MT, int NT>
-__device__ __forceinline__ void put_block(float* tile, const Acc<MT, NT>& x,
-                                          int m0, int n0) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(
-            tile + tile_at(frag_row(m0, mi, 2 * h), frag_col(n0, ni, 0))) =
-            make_float2(x[mi][ni][2 * h], x[mi][ni][2 * h + 1]);
-}
-
-// Per row of the warp's block, sum_c x(row, c) * acc over its columns, in
-// double, into part[row] (the four lanes of a row summed in a fixed order).
-template <int MT, int NT, class TX>
-__device__ __forceinline__ void row_dots(double* part, TX X,
-                                         const Acc<MT, NT>& acc, int m0,
-                                         int n0) {
-  double s[MT][2] = {};
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[mi][e >> 1] = fma((double)X(frag_row(m0, mi, e),
-                                      frag_col(n0, ni, e)),
-                            (double)acc[mi][ni][e], s[mi][e >> 1]);
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      double x = s[mi][hh];
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
-      if ((threadIdx.x & 3) == 0) part[frag_row(m0, mi, 2 * hh)] = x;
-    }
-}
 
 // ---------------------------------------------------------------- sums
-// U_c = sum_i e^{cum_i} q_i dy_i^T (N x P) in fp64 on DMMA, and e^{cum_L},
-// for one (b, h, chunk).
+// U_c = sum_i e^{cum_i} q_i dy_i^T (64 rows of N x 64 columns of P) in fp64
+// on DMMA, and e^{cum_L}, for one (b, h, chunk, column tile, row tile).
 __global__ void __launch_bounds__(kThreads) ssd_bwd_sums_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // q[2], dy[2]: a ring of
@@ -371,17 +125,23 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_sums_kernel(BwdArgs a) {
   const long long bhc = blockIdx.x, bh = bhc / a.nc;
   const int c = (int)(bhc % a.nc), b = (int)(bh / a.H), h = (int)(bh % a.H);
   const int s0 = c * a.Q, Qc = min(a.Q, a.S - s0);
+  const int p0 = blockIdx.y * kT, PT = min(kT, a.P - p0);
+  const int n0 = blockIdx.z * kT, NT = min(kT, a.N - n0);
   const float* A = a.a + b * a.va.b + h * a.va.h + s0 * a.va.s;
-  const Rows64 x{a.q + b * a.vq.b + h * a.vq.h + s0 * a.vq.s, a.vq.s, a.N,
-                 a.wq};
-  const Rows64 y{a.dy + b * a.vdy.b + h * a.vdy.h + s0 * a.vdy.s, a.vdy.s,
-                 a.P, a.wdy};
+  // 16-byte copies of a tile whose width is a multiple of 4 (on the wide
+  // route the flags check only the rows' alignment)
+  const Rows64 x{a.q + b * a.vq.b + h * a.vq.h + s0 * a.vq.s + n0, a.vq.s,
+                 NT, a.wq && NT % 4 == 0};
+  const Rows64 y{a.dy + b * a.vdy.b + h * a.vdy.h + s0 * a.vdy.s + p0,
+                 a.vdy.s, PT, a.wdy && PT % 4 == 0};
   issue_rows(qt, yt, x, y, 0, Qc);
   const double cs = block_scan(log_decay(A, a.va.s, tid, Qc), scratch);
   e[tid] = tid < Qc ? exp(cs) : 0.0;
-  if (tid == Qc - 1) a.decay[bhc] = exp(cs);
-  outer_sum_f64(qt, yt, yd, e, x, y, Qc, a.carry + bhc * a.N * a.P, a.P,
-                a.N, a.P);
+  if (tid == Qc - 1 && blockIdx.y == 0 && blockIdx.z == 0)
+    a.decay[bhc] = exp(cs);
+  outer_sum_f64(qt, yt, yd, e, x, y, Qc,
+                a.carry + bhc * a.N * a.P + (long long)n0 * a.P + p0, a.P, NT,
+                PT);
 }
 
 // ---------------------------------------------------------------- carry
@@ -580,11 +340,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
 
     if (diag) {                        // column J opens: its dS terms
       if (grp == 0) {
-        mm3_exact(g, Rows{v_}, Cols{dst}, qm, qn, kP8);  // v_J dS^T
+        mm3_exact<kSplit>(g, Rows{v_}, Cols{dst}, qm, qn, kP8);  // v_J dS^T
         row_dots(ypart + (qn >> 5) * kT, Rows{k_}, g, qm, qn);
       } else {
         zero_acc(g);
-        mm3(g, Rows{k_}, Rows{dst}, qm, qn, 0, kN8);     // k_J dS
+        mm3<kSplit>(g, Rows{k_}, Rows{dst}, qm, qn, 0, kN8);     // k_J dS
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -596,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
     }
     if (J == 0) {                      // row I's first visit: S dy_I
       Acc<2, 2> tq;
-      mm3_exact(tq, Rows{y_}, Cols{st}, hm, hn, kP8);  // dy_I S^T
+      mm3_exact<kSplit>(tq, Rows{y_}, Cols{st}, hm, hn, kP8);  // dy_I S^T
       row_dots(xpart + (warp & 3) * kT, Rows{q_}, tq, hm, hn);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -613,8 +373,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
     {
       Acc<2, 4> sc;
       if (!diag || qn < qm + 32) {     // else wholly above the diagonal
-        if (grp == 0) mm3_exact(sc, Rows{y_}, Cols{v_}, qm, qn, kP8);
-        else mm3_exact(sc, Rows{q_}, Cols{k_}, qm, qn, kN8);
+        if (grp == 0) mm3_exact<kSplit>(sc, Rows{y_}, Cols{v_}, qm, qn, kP8);
+        else mm3_exact<kSplit>(sc, Rows{q_}, Cols{k_}, qm, qn, kN8);
       } else {
         zero_acc(sc);
       }
@@ -646,12 +406,14 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
 
     // dk_J (group 0), dv_J (group 1); dq_I (its sum so far from global
     // memory); on the diagonal only depths below it
-    if (grp == 0) mm3(g, Cols{md}, Rows{q_}, qm, qn, diag ? qm : 0, kT);
-    else mm3(g, Cols{ms}, Rows{y_}, qm, qn, diag ? qm : 0, kT);
+    if (grp == 0)
+      mm3<kSplit>(g, Cols{md}, Rows{q_}, qm, qn, diag ? qm : 0, kT);
+    else
+      mm3<kSplit>(g, Cols{ms}, Rows{y_}, qm, qn, diag ? qm : 0, kT);
     {
       Acc<2, 2> gq;
       load_block(gq, DQ + I * kT * a.N, a.N, hm, hn, rI, a.N);
-      mm3(gq, Rows{md}, Rows{k_}, hm, hn, 0, diag ? hm + 32 : kT);
+      mm3<kSplit>(gq, Rows{md}, Rows{k_}, hm, hn, 0, diag ? hm + 32 : kT);
       store_block(DQ + I * kT * a.N, gq, a.N, hm, hn, rI, a.N);
     }
     if (I == nT - 1) {                 // column J closes
@@ -682,20 +444,482 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
   }
 }
 
-bool wide(const float* p, long long sb, long long sh, long long ss,
-          int cols) {
+// ---------------------------------------------------------------- wide
+// The route for N or P above 64 (csrc/ssd_mma.cuh, "wide route"): one
+// chunk's tiles no longer fit shared memory, and each score sums over a
+// whole axis (q_i . k_j over N, dy_i . v_j over P), so the chunk kernel's
+// work is split by what each output needs, five launches after the sums
+// and the carry:
+// * ssd_bwd_scores_kernel, one block per (b, h, chunk, tile pair I >= J):
+//   both raw scores, dy_I v_J^T over P and q_I k_J^T over N in 64-wide
+//   slices, masked into M o D and M o Sc (Qp x Qp fp32 a chunk), and Z's
+//   row and column sums over the pair, in double;
+// * ssd_bwd_dq_kernel, one block per (b, h, chunk, row tile I, tile of N):
+//   e^{cum_i} S dy_i summed over P in slices (X's partial over the tile of
+//   N from it), then (M o D)_IJ k_J for J <= I;
+// * ssd_bwd_dk_kernel, per (b, h, chunk, column tile J, tile of N): w_j dS
+//   v_j over P in slices (Y's partial), then (M o D)_IJ^T q_I for I >= J;
+// * ssd_bwd_dv_kernel, per (b, h, chunk, column tile J, tile of P): w_j
+//   dS^T k_j over N in slices, then (M o Sc)_IJ^T dy_I for I >= J;
+// * ssd_bwd_dla_kernel, one block per (b, h, chunk): <dS, S>, then R, C, X
+//   and Y summed from their partials and d(log a)'s two scans, as the
+//   chunk kernel's end.
+// Every partial is written by one block to a place of its own and summed
+// by another in a fixed order: no atomics, the same bits on every run.
+// The products whose roundings reach d(log a) -- both scores (Z), S dy (X)
+// and dS v (Y, from the fp64 dS) -- run in fp64 on DMMA (mm_f64), with the
+// decay mask in double: summed 512 and 513 deep, and then over a chunk's
+// 256 positions by d(log a)'s scans, fp32 products left d(log a) 5e-4
+// from float64 with decays near 1 (H100, xLSTM's shape).  dq, dk and dv
+// take those in fp32; their other products are 3xTF32, each 64-deep slice
+// summed from zero and added in fp32.
+
+// Shared memory of the wide route's kernels: the ring, one more tile, e^{cum}
+// and w, cum, a scan's scratch and the per-warp partials; the dk kernel's
+// also a two-stage ring of fp64 dS tiles.
+constexpr int kWideSmem = kRingSmem + 4 * kTile + 4 * 2 * kMaxQ
+                          + 8 * (kMaxQ + 8 + 6 * kT);
+constexpr int kWideDkSmem = kWideSmem + 8 * 2 * kT * kLdD;
+
+struct WideSmem {
+  float* at; float* bt;    // the ring's A and B tiles, two stages each
+  float* xt;               // one more tile
+  float* ecum; float* wdec;
+  double* cum; double* scratch; double* part;   // part: [6][64]
+  double* dd;              // the dk kernel's fp64 ring (two kT x kLdD)
+};
+
+__device__ __forceinline__ WideSmem wide_smem(float4* smem4) {
+  WideSmem s;
+  s.at = reinterpret_cast<float*>(smem4);
+  s.bt = s.at + 2 * kTile;
+  s.xt = s.bt + 2 * kTile;
+  s.ecum = s.xt + kTile;
+  s.wdec = s.ecum + kMaxQ;
+  s.cum = reinterpret_cast<double*>(s.wdec + kMaxQ);
+  s.scratch = s.cum + kMaxQ;
+  s.part = s.scratch + 8;
+  s.dd = s.part + 6 * kT;
+  return s;
+}
+
+// cum (double), e^{cum} and w = e^{cum_L - cum} (fp32, 0 past the chunk)
+// of the chunk at A, into shared memory; returns cum_L.  Every thread.
+__device__ __forceinline__ double chunk_decays(const WideSmem& s,
+                                               const float* A, long long st,
+                                               int Qc) {
+  const int tid = threadIdx.x;
+  const double cs = block_scan(log_decay(A, st, tid, Qc), s.scratch);
+  s.cum[tid] = cs;
+  __syncthreads();
+  const double cL = s.cum[Qc - 1];
+  s.ecum[tid] = tid < Qc ? expf((float)cs) : 0.f;
+  s.wdec[tid] = tid < Qc ? expf((float)(cL - cs)) : 0.f;
+  return cL;
+}
+
+// x = u rounded to fp32 (scaled by f[row], if given).
+template <int MT, int NT>
+__device__ __forceinline__ void to_f32(Acc<MT, NT>& x,
+                                       const double (&u)[MT][NT][4],
+                                       const float* f, int m0) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[mi][ni][e] = (float)(f == nullptr ? u[mi][ni][e]
+                               : u[mi][ni][e] * f[frag_row(m0, mi, e)]);
+}
+
+// Rows [0, rows) and columns [0, cols) of an fp64 matrix (row stride
+// `stride`) into an fp64 tile (row r at r * kLdD), zeros elsewhere; plain
+// loads and stores by the whole block.
+__device__ __forceinline__ void load_tile_d(double* dst, const double* src,
+                                            long long stride, int rows,
+                                            int cols) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const int r = i >> 6, c = i & 63;
+    dst[r * kLdD + c] = r < rows && c < cols ? src[r * stride + c] : 0.0;
+  }
+}
+
+// The block's (b, h, chunk) and where its chunk starts.
+struct ChunkAt {
+  long long bhc, bh;
+  int b, h, s0, Qc;
+};
+
+__device__ __forceinline__ ChunkAt chunk_at(const BwdArgs& a) {
+  ChunkAt c;
+  c.bhc = blockIdx.x;
+  c.bh = c.bhc / a.nc;
+  const int ch = (int)(c.bhc % a.nc);
+  c.b = (int)(c.bh / a.H);
+  c.h = (int)(c.bh % a.H);
+  c.s0 = ch * a.Q;
+  c.Qc = min(a.Q, a.S - c.s0);
+  return c;
+}
+
+// Row t (of the chunk) of a (B, H, S, .) input.
+__device__ __forceinline__ const float* row_of(const float* p, View v,
+                                               const ChunkAt& c, int t) {
+  return p + c.b * v.b + c.h * v.h + (c.s0 + t) * v.s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_scores_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const WideSmem sm = wide_smem(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int m0 = wide_m0(), n0 = wide_n0();
+  const ChunkAt ch = chunk_at(a);
+  int I, J;
+  tile_pair(blockIdx.y, I, J);
+  if (I * kT >= ch.Qc) return;         // a ragged last chunk has fewer tiles
+  const int rI = min(kT, ch.Qc - I * kT), rJ = min(kT, ch.Qc - J * kT);
+  const int nP = (a.P + kT - 1) / kT;
+  const float* DYi = row_of(a.dy, a.vdy, ch, I * kT);
+  const float* Vj = row_of(a.v, a.vv, ch, J * kT);
+  const float* Qi = row_of(a.q, a.vq, ch, I * kT);
+  const float* Kj = row_of(a.k, a.vk, ch, J * kT);
+  // steps [0, nP): dy_I and v_J over a slice of P; then q_I and k_J over
+  // the slices of N
+  auto issue = [&](int s) {
+    float* x = sm.at + (s & 1) * kTile;
+    float* z = sm.bt + (s & 1) * kTile;
+    if (s < nP) {
+      const int p = s * kT, cols = min(kT, a.P - p);
+      copy_tile<true>(x, DYi + p, a.vdy.s, rI, cols, a.wdy);
+      copy_tile<true>(z, Vj + p, a.vv.s, rJ, cols, a.wv);
+    } else {
+      const int n = (s - nP) * kT, cols = min(kT, a.N - n);
+      copy_tile<true>(x, Qi + n, a.vq.s, rI, cols, a.wq);
+      copy_tile<true>(z, Kj + n, a.vk.s, rJ, cols, a.wk);
+    }
+    hopper::cp_async_commit();
+  };
+  issue(0);
+  chunk_decays(sm, row_of(a.a, a.va, ch, 0), a.va.s, ch.Qc);
+  double d[2][2][4] = {}, sc[2][2][4] = {};        // dy_I v_J^T, q_I k_J^T
+  ring(nP + a.nN, issue, [&](int s) {
+    const Rows x{sm.at + (s & 1) * kTile};
+    const Cols z{sm.bt + (s & 1) * kTile};
+    if (s < nP) mm_f64(d, x, z, m0, n0, kT);
+    else mm_f64(sc, x, z, m0, n0, kT);
+  });
+  // M o D and M o Sc (rounded to fp32 for dq, dk, dv) and Z = M D Sc, in
+  // double; M = e^{cum_i - cum_j}, formed where i >= j only
+  Acc<2, 2> md, ms;
+  double zr[2][2] = {}, zc[2][2] = {};
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = I * kT + frag_row(m0, mi, e);
+        const int cc = J * kT + frag_col(n0, ni, e);
+        const double m = cc <= r && r < ch.Qc
+                         ? exp(sm.cum[r] - sm.cum[cc]) : 0.0;
+        const double dm = d[mi][ni][e] * m, s = sc[mi][ni][e];
+        const double z = dm * s;
+        zr[mi][e >> 1] += z;
+        zc[ni][e & 1] += z;
+        md[mi][ni][e] = (float)dm;
+        ms[mi][ni][e] = (float)(s * m);
+      }
+  const long long tile = ch.bhc * a.Qp * a.Qp + (long long)I * kT * a.Qp
+                         + J * kT;
+  store_block(a.md + tile, md, a.Qp, m0, n0, kT, kT);
+  store_block(a.ms + tile, ms, a.Qp, m0, n0, kT, kT);
+  double* rpart = sm.part;             // [4][64]: by warp column quarter
+  double* cpart = sm.part + 4 * kT;    // [2][64]: by warp row half
+  const int g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      double x = zr[mi][hh];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (t == 0) rpart[(warp & 3) * kT + frag_row(m0, mi, 2 * hh)] = x;
+    }
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      double x = zc[ni][j];
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (g == 0) cpart[(warp >> 2) * kT + frag_col(n0, ni, j)] = x;
+    }
+  __syncthreads();
+  const int nT = a.Qp / kT;
+  sum_parts(a.rz + (ch.bhc * nT + J) * a.Qp + I * kT, rpart, 4, rI);
+  sum_parts(a.cz + (ch.bhc * nT + I) * a.Qp + J * kT, cpart, 2, rJ);
+}
+
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dq_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const WideSmem sm = wide_smem(smem4);
+  const int warp = threadIdx.x >> 5, m0 = wide_m0(), n0 = wide_n0();
+  const ChunkAt ch = chunk_at(a);
+  const int I = blockIdx.y, nt = blockIdx.z;
+  if (I * kT >= ch.Qc) return;
+  const int rI = min(kT, ch.Qc - I * kT), nP = (a.P + kT - 1) / kT;
+  const int c0 = nt * kT, NT = min(kT, a.N - c0);
+  const float* DYi = row_of(a.dy, a.vdy, ch, I * kT);
+  const float* St = a.states + ch.bhc * a.N * a.P + (long long)c0 * a.P;
+  const float* K = row_of(a.k, a.vk, ch, 0) + c0;
+  const float* MD = a.md + ch.bhc * a.Qp * a.Qp + (long long)I * kT * a.Qp;
+  // steps [0, nP): dy_I and S over a slice of P; then (M o D)_IJ and k_J,
+  // J = step - nP
+  auto issue = [&](int s) {
+    float* x = sm.at + (s & 1) * kTile;
+    float* z = sm.bt + (s & 1) * kTile;
+    if (s < nP) {
+      const int p = s * kT, cols = min(kT, a.P - p);
+      copy_tile<true>(x, DYi + p, a.vdy.s, rI, cols, a.wdy);
+      copy_tile<true>(z, St + p, a.P, NT, cols, a.wS);
+    } else {
+      const int J = s - nP;
+      copy_tile<true>(x, MD + J * kT, a.Qp, kT, kT, true);
+      copy_tile<true>(z, K + (long long)J * kT * a.vk.s, a.vk.s,
+                min(kT, ch.Qc - J * kT), NT, a.wk);
+    }
+    hopper::cp_async_commit();
+  };
+  copy_tile<true>(sm.xt, row_of(a.q, a.vq, ch, I * kT) + c0, a.vq.s, rI,
+                  NT, a.wq);
+  issue(0);
+  chunk_decays(sm, row_of(a.a, a.va, ch, 0), a.va.s, ch.Qc);
+  Acc<2, 2> x;
+  double u[2][2][4] = {};              // dy_I S^T, in fp64
+  ring(nP + I + 1, issue, [&](int s) {
+    const float* A_ = sm.at + (s & 1) * kTile;
+    const float* B_ = sm.bt + (s & 1) * kTile;
+    if (s < nP) {
+      mm_f64(u, Rows{A_}, Cols{B_}, m0, n0, kT);
+      if (s == nP - 1) {               // X's partial, then e^{cum_i} S dy_i
+        row_dots(sm.part + (warp & 3) * kT, Rows{sm.xt}, u, m0, n0);
+        to_f32(x, u, sm.ecum + I * kT, m0);
+      }
+    } else {                           // (M o D)_IJ k_J
+      mm3<kSplit>(x, Rows{A_}, Rows{B_}, m0, n0, 0, kT);
+    }
+  });
+  sum_parts(a.xp + (ch.bhc * a.nN + nt) * a.Qp + I * kT, sm.part, 4, rI);
+  store_block(a.dq + (ch.bh * a.S + ch.s0 + I * kT) * a.N + c0, x, a.N, m0,
+              n0, rI, NT);
+}
+
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dk_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const WideSmem sm = wide_smem(smem4);
+  const int warp = threadIdx.x >> 5, m0 = wide_m0(), n0 = wide_n0();
+  const ChunkAt ch = chunk_at(a);
+  const int J = blockIdx.y, nt = blockIdx.z;
+  if (J * kT >= ch.Qc) return;
+  const int rJ = min(kT, ch.Qc - J * kT), nP = (a.P + kT - 1) / kT;
+  const int nTc = (ch.Qc + kT - 1) / kT;
+  const int c0 = nt * kT, NT = min(kT, a.N - c0);
+  const float* Vj = row_of(a.v, a.vv, ch, J * kT);
+  const double* dS = a.carry + ch.bhc * a.N * a.P + (long long)c0 * a.P;
+  const float* Qm = row_of(a.q, a.vq, ch, 0) + c0;
+  const float* MD = a.md + ch.bhc * a.Qp * a.Qp + J * kT;
+  // steps [0, nP): v_J and dS over a slice of P; then (M o D)_IJ and q_I,
+  // I = J + step - nP
+  auto issue = [&](int s) {
+    float* x = sm.at + (s & 1) * kTile;
+    float* z = sm.bt + (s & 1) * kTile;
+    if (s < nP) {
+      const int p = s * kT, cols = min(kT, a.P - p);
+      copy_tile<true>(x, Vj + p, a.vv.s, rJ, cols, a.wv);
+      load_tile_d(sm.dd + (s & 1) * kT * kLdD, dS + p, a.P, NT, cols);
+    } else {
+      const int I = J + s - nP;
+      copy_tile<true>(x, MD + (long long)I * kT * a.Qp, a.Qp, kT, kT, true);
+      copy_tile<true>(z, Qm + (long long)I * kT * a.vq.s, a.vq.s,
+                min(kT, ch.Qc - I * kT), NT, a.wq);
+    }
+    hopper::cp_async_commit();
+  };
+  copy_tile<true>(sm.xt, row_of(a.k, a.vk, ch, J * kT) + c0, a.vk.s, rJ,
+                  NT, a.wk);
+  issue(0);
+  chunk_decays(sm, row_of(a.a, a.va, ch, 0), a.va.s, ch.Qc);
+  Acc<2, 2> x;
+  double u[2][2][4] = {};              // v_J dS^T, in fp64
+  ring(nP + nTc - J, issue, [&](int s) {
+    const float* A_ = sm.at + (s & 1) * kTile;
+    const float* B_ = sm.bt + (s & 1) * kTile;
+    if (s < nP) {
+      mm_f64(u, Rows{A_}, ColsD{sm.dd + (s & 1) * kT * kLdD}, m0, n0, kT);
+      if (s == nP - 1) {               // Y's partial, then w_j dS v_j
+        row_dots(sm.part + (warp & 3) * kT, Rows{sm.xt}, u, m0, n0);
+        to_f32(x, u, sm.wdec + J * kT, m0);
+      }
+    } else {                           // (M o D)_IJ^T q_I
+      mm3<kSplit>(x, Cols{A_}, Rows{B_}, m0, n0, 0, kT);
+    }
+  });
+  sum_parts(a.yp + (ch.bhc * a.nN + nt) * a.Qp + J * kT, sm.part, 4, rJ);
+  store_block(a.dk + (ch.bh * a.S + ch.s0 + J * kT) * a.N + c0, x, a.N, m0,
+              n0, rJ, NT);
+}
+
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dv_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const WideSmem sm = wide_smem(smem4);
+  const int m0 = wide_m0(), n0 = wide_n0();
+  const ChunkAt ch = chunk_at(a);
+  const int J = blockIdx.y, p0 = blockIdx.z * kT, PT = min(kT, a.P - p0);
+  if (J * kT >= ch.Qc) return;
+  const int rJ = min(kT, ch.Qc - J * kT), nTc = (ch.Qc + kT - 1) / kT;
+  const float* Kj = row_of(a.k, a.vk, ch, J * kT);
+  const double* dS = a.carry + ch.bhc * a.N * a.P + p0;
+  const float* DY = row_of(a.dy, a.vdy, ch, 0) + p0;
+  const float* MS = a.ms + ch.bhc * a.Qp * a.Qp + J * kT;
+  // steps [0, nN): k_J and dS over a slice of N; then (M o Sc)_IJ and
+  // dy_I, I = J + step - nN
+  auto issue = [&](int s) {
+    float* x = sm.at + (s & 1) * kTile;
+    float* z = sm.bt + (s & 1) * kTile;
+    if (s < a.nN) {
+      const int n = s * kT, rows = min(kT, a.N - n);
+      copy_tile<true>(x, Kj + n, a.vk.s, rJ, rows, a.wk);
+      load_tile_f64(z, dS + (long long)n * a.P, a.P, rows, PT);
+    } else {
+      const int I = J + s - a.nN;
+      copy_tile<true>(x, MS + (long long)I * kT * a.Qp, a.Qp, kT, kT, true);
+      copy_tile<true>(z, DY + (long long)I * kT * a.vdy.s, a.vdy.s,
+                min(kT, ch.Qc - I * kT), PT, a.wdy);
+    }
+    hopper::cp_async_commit();
+  };
+  issue(0);
+  chunk_decays(sm, row_of(a.a, a.va, ch, 0), a.va.s, ch.Qc);
+  Acc<2, 2> x;
+  zero_acc(x);
+  ring(a.nN + nTc - J, issue, [&](int s) {
+    const float* A_ = sm.at + (s & 1) * kTile;
+    const float* B_ = sm.bt + (s & 1) * kTile;
+    if (s < a.nN) {                    // k_J dS, then w_j dS^T k_j
+      mm3<kSplit>(x, Rows{A_}, Rows{B_}, m0, n0, 0, kT);
+      if (s == a.nN - 1) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              x[mi][ni][e] *= sm.wdec[J * kT + frag_row(m0, mi, e)];
+      }
+    } else {                           // (M o Sc)_IJ^T dy_I
+      mm3<kSplit>(x, Cols{A_}, Rows{B_}, m0, n0, 0, kT);
+    }
+  });
+  store_block(a.dv + (ch.bh * a.S + ch.s0 + J * kT) * a.P + p0, x, a.P, m0,
+              n0, rJ, PT);
+}
+
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dla_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const WideSmem sm = wide_smem(smem4);
+  double* fsum = reinterpret_cast<double*>(sm.at);   // R_i - C_i + X_i
+  double* ysum = fsum + kMaxQ;                       // Y_j
+  const int tid = threadIdx.x;
+  const ChunkAt ch = chunk_at(a);
+  const float* A = row_of(a.a, a.va, ch, 0);
+  const double cL = chunk_decays(sm, A, a.va.s, ch.Qc);
+  // <dS, S>
+  const long long NP = (long long)a.N * a.P;
+  const float* S_ = a.states + ch.bhc * NP;
+  const double* dS = a.carry + ch.bhc * NP;
+  double part = 0.0;
+  for (long long i = tid; i < NP; i += kThreads)
+    part = fma(dS[i], (double)S_[i], part);
+  const double ds_prev = block_sum(part, sm.scratch);   // syncs
+  // position t's terms from their partials, in a fixed order
+  const int nT = a.Qp / kT, nTc = (ch.Qc + kT - 1) / kT;
+  double f = 0.0, y = 0.0;
+  if (tid < ch.Qc) {
+    const int T = tid / kT;
+    for (int J = 0; J <= T; ++J) f += a.rz[(ch.bhc * nT + J) * a.Qp + tid];
+    for (int I = T; I < nTc; ++I) f -= a.cz[(ch.bhc * nT + I) * a.Qp + tid];
+    double xs = 0.0, ys = 0.0;
+    for (int n = 0; n < a.nN; ++n) {
+      xs += a.xp[(ch.bhc * a.nN + n) * a.Qp + tid];
+      ys += a.yp[(ch.bhc * a.nN + n) * a.Qp + tid];
+    }
+    f += (double)sm.ecum[tid] * xs;
+    y = (double)sm.wdec[tid] * ys;
+  }
+  fsum[tid] = f;
+  __syncthreads();
+  // as the chunk kernel's end: thread t scans position Qc-1-t for the
+  // first sum and position t for the second
+  const int idx = ch.Qc - 1 - tid;
+  const double after = block_scan(idx >= 0 ? fsum[idx] : 0.0, sm.scratch);
+  const double before = block_scan(y, sm.scratch) - y;
+  ysum[tid] = before;
+  const double dec = exp(cL);
+  __syncthreads();
+  if (idx >= 0) {
+    const double dla = after + dec * ds_prev + ysum[idx];
+    const float av = A[idx * a.va.s];
+    a.da[ch.bh * a.S + ch.s0 + idx] = av > kMinA ? (float)(dla / av) : 0.f;
+  }
+}
+
+bool aligned(const float* p, long long sb, long long sh, long long ss,
+             int cols) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0
          && sh % 4 == 0 && ss % 4 == 0 && cols % 4 == 0;
 }
 
+// The parts of the `work` buffer (in doubles, after the U_c / dS_c carry
+// and e^{cum_L}): the wide route's partials and scores, each 16-byte
+// aligned.
+struct WorkParts {
+  long long rz, cz, xp, yp, md, ms, total;
+};
+
+WorkParts work_parts(long long chunks, int N, int P, int Q) {
+  WorkParts w{};
+  long long at = chunks * ((long long)N * P + 1);
+  if (N > kT || P > kT) {
+    const long long Qp = (Q + kT - 1) / kT * kT, nN = (N + kT - 1) / kT;
+    at = (at + 1) / 2 * 2;
+    w.rz = at;  at += chunks * (Qp / kT) * Qp;
+    w.cz = at;  at += chunks * (Qp / kT) * Qp;
+    w.xp = at;  at += chunks * nN * Qp;
+    w.yp = at;  at += chunks * nN * Qp;
+    w.md = at;  at += chunks * Qp * Qp / 2;
+    w.ms = at;  at += chunks * Qp * Qp / 2;
+  }
+  w.total = at;
+  return w;
+}
+
 }  // namespace
+
+extern "C" long long ssd_scan_bwd_work(int B, int H, int S, int N, int P,
+                                       int Q) {
+  return work_parts((long long)B * H * ((S + Q - 1) / Q), N, P, Q).total;
+}
 
 // Strides as in ssd_scan_fwd_launch, for a, k, v, q and dy; states
 // (B,H,nc,N,P), dfinal (B,H,N,P) and the outputs da (B,H,S),
 // dk, dq (B,H,S,N), dv (B,H,S,P) and dinit (B,H,N,P) contiguous; work
-// holds B*H*nc*(N*P + 1) doubles.  N, P <= 64, 1 <= Q <= 256.  dfinal and
-// dinit may be null.  Three launches on `stream`.  Returns a CUDA error
-// code (0 on success).
+// holds ssd_scan_bwd_work(B, H, S, N, P, Q) doubles.  Any N and P, 1 <= Q
+// <= 256: N, P <= 64 take the chunk kernel, the rest the wide route.
+// dfinal and dinit may be null.  Three launches on `stream` (seven on the
+// wide route).  Returns a CUDA error code (0 on success).
 extern "C" int ssd_scan_bwd_launch(
     const float* a, const float* k, const float* v, const float* q,
     const float* dy, const float* states, const float* dfinal, float* da,
@@ -706,17 +930,29 @@ extern "C" int ssd_scan_bwd_launch(
     long long qb, long long qh, long long qs,
     long long yb, long long yh, long long ys,
     int B, int H, int S, int N, int P, int Q, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || N < 1 || N > kT || P < 1 || P > kT
-      || Q < 1 || Q > kMaxQ)
+  if (B < 1 || H < 1 || S < 1 || N < 1 || P < 1 || Q < 1 || Q > kMaxQ)
     return (int)cudaErrorInvalidValue;
   const int nc = (S + Q - 1) / Q;
   const long long chunks = (long long)B * H * nc;
+  const bool wide = N > kT || P > kT;
+  const int nT = (Q + kT - 1) / kT;
+  const int ptiles = (P + kT - 1) / kT, ntiles = (N + kT - 1) / kT;
+  const WorkParts w = work_parts(chunks, N, P, Q);
+  // the wide route's own kernels copy a ragged last group of columns 16
+  // bytes at a time too (copy_tile<true>), so only the rows' alignment
+  // counts there; the sums kernel copies a ragged tile 4 bytes at a time
   BwdArgs args{a, k, v, q, dy, states, dfinal, da, dk, dv, dq, dinit,
                work, work + chunks * N * P,
                {ab, ah, as}, {kb, kh, ks}, {vb, vh, vs}, {qb, qh, qs},
                {yb, yh, ys}, H, S, N, P, Q, nc,
-               wide(k, kb, kh, ks, N), wide(v, vb, vh, vs, P),
-               wide(q, qb, qh, qs, N), wide(dy, yb, yh, ys, P)};
+               aligned(k, kb, kh, ks, wide ? 0 : N),
+               aligned(v, vb, vh, vs, wide ? 0 : P),
+               aligned(q, qb, qh, qs, wide ? 0 : N),
+               aligned(dy, yb, yh, ys, wide ? 0 : P),
+               work + w.rz, work + w.cz, work + w.xp, work + w.yp,
+               reinterpret_cast<float*>(work + w.md),
+               reinterpret_cast<float*>(work + w.ms), nT * kT, ntiles,
+               P % 4 == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_bwd_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -725,14 +961,37 @@ extern "C" int ssd_scan_bwd_launch(
     err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kChunkSmem);
+  for (const void* fn : {(const void*)ssd_bwd_scores_kernel,
+                         (const void*)ssd_bwd_dq_kernel,
+                         (const void*)ssd_bwd_dk_kernel,
+                         (const void*)ssd_bwd_dv_kernel,
+                         (const void*)ssd_bwd_dla_kernel})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          fn == (const void*)ssd_bwd_dk_kernel ? kWideDkSmem : kWideSmem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N * P + kThreads - 1) / kThreads;
-  if (chunks > 0x7fffffffLL || (long long)B * H * blocks > 0x7fffffffLL)
+  if (chunks > 0x7fffffffLL || (long long)B * H * blocks > 0x7fffffffLL
+      || ptiles > 65535 || ntiles > 65535)
     return (int)cudaErrorInvalidValue;
-  ssd_bwd_sums_kernel<<<(unsigned)chunks, kThreads, kSumsSmem, st>>>(args);
+  const unsigned cg = (unsigned)chunks;
+  ssd_bwd_sums_kernel<<<dim3(cg, ptiles, ntiles), kThreads, kSumsSmem,
+                        st>>>(args);
   ssd_bwd_carry_kernel<<<(unsigned)(B * H * blocks), kThreads, 0, st>>>(
       args, blocks);
-  ssd_bwd_chunk_kernel<<<(unsigned)chunks, kThreads, kChunkSmem, st>>>(
-      args);
+  if (!wide) {
+    ssd_bwd_chunk_kernel<<<cg, kThreads, kChunkSmem, st>>>(args);
+  } else {
+    ssd_bwd_scores_kernel<<<dim3(cg, nT * (nT + 1) / 2), kThreads, kWideSmem,
+                            st>>>(args);
+    ssd_bwd_dq_kernel<<<dim3(cg, nT, ntiles), kThreads, kWideSmem, st>>>(
+        args);
+    ssd_bwd_dk_kernel<<<dim3(cg, nT, ntiles), kThreads, kWideDkSmem, st>>>(
+        args);
+    ssd_bwd_dv_kernel<<<dim3(cg, nT, ptiles), kThreads, kWideSmem, st>>>(
+        args);
+    ssd_bwd_dla_kernel<<<cg, kThreads, kWideSmem, st>>>(args);
+  }
   return (int)cudaGetLastError();
 }

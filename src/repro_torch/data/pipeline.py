@@ -32,9 +32,10 @@ class DataConfig:
 
 class SyntheticTokenPipeline:
     """Seekable synthetic LM data; batches are int64 tensors on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU, as every
+    entry point of the port)."""
 
-    def __init__(self, cfg: DataConfig, device="cpu"):
+    def __init__(self, cfg: DataConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)

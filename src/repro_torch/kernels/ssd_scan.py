@@ -57,7 +57,15 @@ the reference's, whose wrapper pads with a = 1.
 
 Both kernels take float32 tensors of any element strides on (B, H, S)
 (stride 0 included: the model's k and q are one (B, S, N) tensor
-broadcast over H) and unit stride on the last axis.  On a CUDA tensor each
+broadcast over H) and unit stride on the last axis, and any N and P.  A
+state of at most 64 x 64 (zamba2's) is one chunk kernel's work; a wider
+one (xLSTM's mLSTM: N 512, P 513) takes each kernel's wide route, whose
+products stream over N and P in 64-wide slices (the sources' notes).
+There the backward forms the products that reach d(log a) -- both scores,
+S dy and dS v, the last from dS in float64 -- in float64 (fp32 ones left
+d(log a) 5e-4 from float64 at that shape), so its dk is a rounding closer
+to float64 than the plain version's.  The C side picks the route and
+sizes its fp64 work buffer (``ssd_scan_fwd_work``, ``ssd_scan_bwd_work``).  On a CUDA tensor each
 wrapper launches its kernel or raises; only a CPU tensor takes the plain
 version.
 """
@@ -76,7 +84,6 @@ launches = 0
 #: launches of the backward kernel since the last reset
 bwd_launches = 0
 
-_TILE = 64                   # state rows / columns held by one block
 _MAX_CHUNK = 256             # the kernels scan a chunk, a position a thread
 _MIN_A = 1e-37               # log(max(a, 1e-37)), as the reference
 
@@ -308,16 +315,14 @@ def ssd_scan_fwd(a, k, v, q, chunk: int = 256, initial_state=None,
     _check_cuda("ssd_scan", [a, k, v, q], chunk)
     B, H, S = a.shape
     N, P = k.shape[-1], v.shape[-1]
-    if N > _TILE:
-        raise ValueError(f"ssd_scan: the kernel takes N <= {_TILE} (got {N})")
     nc = -(-S // chunk)
     y = torch.empty_like(v)
     final = torch.empty((B, H, N, P), dtype=torch.float32, device=a.device)
     states = torch.empty((B, H, nc, N, P), dtype=torch.float32,
                          device=a.device)
-    # each chunk's sum dS_c and e^{cum_L}
-    work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float64,
-                       device=a.device)
+    # each chunk's sum dS_c and e^{cum_L} (and the wide route's scores)
+    work = torch.empty(_work("ssd_scan", "ssd_scan_fwd_work", B, H, S, N, P,
+                             chunk), dtype=torch.float64, device=a.device)
     init = initial_state.contiguous() if initial_state is not None else None
     err = _bind_fwd()(
         a.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
@@ -343,9 +348,6 @@ def ssd_scan_bwd(a, k, v, q, dy, states, final, d_final, chunk: int,
     _check_cuda("ssd_scan_bwd", [a, k, v, q, dy], chunk)
     B, H, S = a.shape
     N, P = k.shape[-1], v.shape[-1]
-    if N > _TILE or P > _TILE:
-        raise ValueError(f"ssd_scan_bwd: the kernel takes N, P <= {_TILE} "
-                         f"(got N={N}, P={P})")
     if dy.shape != v.shape or dy.dtype != torch.float32:
         raise ValueError("ssd_scan_bwd: dy must be float32 shaped as v")
     nc = -(-S // chunk)
@@ -360,9 +362,10 @@ def ssd_scan_bwd(a, k, v, q, dy, states, final, d_final, chunk: int,
     dv = torch.empty((B, H, S, P), dtype=torch.float32, device=a.device)
     dinit = (torch.empty((B, H, N, P), dtype=torch.float32, device=a.device)
              if has_initial else None)
-    # each chunk's sum U_c, then its exit gradient dS_c, and e^{cum_L}
-    work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float64,
-                       device=a.device)
+    # each chunk's sum U_c, then its exit gradient dS_c, and e^{cum_L} (and
+    # the wide route's scores and partial sums)
+    work = torch.empty(_work("ssd_scan_bwd", "ssd_scan_bwd_work", B, H, S, N,
+                             P, chunk), dtype=torch.float64, device=a.device)
     err = _bind_bwd()(
         a.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
         dy.data_ptr(), states.data_ptr(),
@@ -418,6 +421,16 @@ def ssd_scan(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P)), differentiable in every input and in ``initial_state``.  Any S:
     a ragged last chunk is masked, nothing is padded."""
     return SSDScan.apply(a, k, v, q, initial_state, chunk)
+
+
+def _work(lib: str, fn: str, *dims) -> int:
+    """Doubles of the work buffer the launch needs at these (B, H, S, N,
+    P, chunk), from the library's own count."""
+    f = getattr(build.load(lib), fn)
+    if f.argtypes is None:
+        f.argtypes = [ctypes.c_int] * 6
+        f.restype = ctypes.c_longlong
+    return f(*dims)
 
 
 def _bind_fwd():

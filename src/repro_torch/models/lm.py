@@ -1,10 +1,14 @@
 """Language model assembly (embed -> blocks -> norm -> tied or untied
-head), for training and greedy decode.  Two block patterns are ported:
+head), for training and greedy decode.  Three block patterns are ported:
 
-* ``attn``              -- dense transformers (gemma-2b);
+* ``attn``              -- dense transformers (gemma-2b, yi-6b,
+                          chatglm3-6b);
 * ``mamba_shared_attn`` -- zamba2: a Mamba-2 backbone with one *shared*
                           attention block (its own KV cache per
-                          application) before every ``attn_every`` layers.
+                          application) before every ``attn_every`` layers;
+* ``xlstm``             -- xlstm-350m: groups of ``slstm_every - 1`` mLSTM
+                          layers, each followed by one sLSTM layer (24
+                          layers: 21 mLSTM and 3 sLSTM, in groups of 7 + 1).
 
 Functional API, as in the reference package's ``models/lm.py``:
   init_params(cfg, generator, device, dtype)   -> params dict
@@ -16,8 +20,8 @@ Functional API, as in the reference package's ``models/lm.py``:
 Parameters keep the reference's keys, shapes and stacked layer axis, so
 the runtime records the same leaf spans for them in both packages.  The
 reference scans over layers; here a Python loop walks per-layer views of
-the stacked tensors.  The ``xlstm`` pattern and the MoE family are queued
-in ROADMAP.md.
+the stacked tensors.  The MoE family and ``layer`` norm are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -29,19 +33,18 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import _tree
 from ..configs.base import ArchConfig
-from . import attention, mamba2, mlp as mlp_mod
+from . import attention, mamba2, mlp as mlp_mod, xlstm
 from .common import (dense_init, embed_init, rms_norm, rope_at,
                      rope_frequencies)
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if (cfg.block_pattern not in ("attn", "mamba_shared_attn")
+    if (cfg.block_pattern not in ("attn", "mamba_shared_attn", "xlstm")
             or cfg.is_moe or cfg.norm != "rms"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense 'attn' and the 'mamba_shared_attn' "
-            "patterns with rms norm are ported (ROADMAP.md, queue 1: "
-            "'xlstm through the ssd_scan kernel' and 'The other eight configs "
-            "and the moe family')")
+            f"{cfg.name}: only the dense 'attn', 'mamba_shared_attn' and "
+            "'xlstm' patterns with rms norm are ported (ROADMAP.md, queue 1: "
+            "'The moe family and the other five configs')")
 
 
 def _init_block(generator, cfg: ArchConfig, n_layers, dtype):
@@ -75,14 +78,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (d, cfg.vocab_size), dtype)
+
+    def with_ln1(blocks, n):
+        blocks["ln1_scale"] = torch.zeros((n, d), dtype=dtype,
+                                          device=generator.device)
+        return blocks
+
     if cfg.block_pattern == "attn":
         params["blocks"] = _init_block(generator, cfg, L, dtype)
-    else:
-        blocks = mamba2.init_mamba2_params(generator, cfg, L, dtype)
-        blocks["ln1_scale"] = torch.zeros((L, d), dtype=dtype,
-                                          device=generator.device)
-        params["mamba_blocks"] = blocks
+    elif cfg.block_pattern == "mamba_shared_attn":
+        params["mamba_blocks"] = with_ln1(
+            mamba2.init_mamba2_params(generator, cfg, L, dtype), L)
         params["shared_attn"] = _init_block(generator, cfg, None, dtype)
+    else:
+        n_m, n_s = _xlstm_counts(cfg)
+        params["mlstm_blocks"] = with_ln1(
+            xlstm.init_mlstm_params(generator, cfg, n_m, dtype), n_m)
+        if n_s:
+            params["slstm_blocks"] = with_ln1(
+                xlstm.init_slstm_params(generator, cfg, n_s, dtype), n_s)
     return _to(params, torch.device(device))
 
 
@@ -98,22 +112,62 @@ def _n_apps(cfg: ArchConfig) -> int:
     return -(-cfg.n_layers // cfg.attn_every)
 
 
+def _xlstm_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(mLSTM layers, sLSTM layers): one sLSTM in every ``slstm_every``."""
+    n_s = cfg.n_layers // cfg.slstm_every if cfg.slstm_every else 0
+    return cfg.n_layers - n_s, n_s
+
+
+def _xlstm_layout(cfg: ArchConfig) -> List[Tuple[str, int, int]]:
+    """The layers in order, as the reference walks them: ("m", first, count)
+    for a run of mLSTM layers, ("s", index, 1) for an sLSTM layer."""
+    L = cfg.n_layers
+    period = cfg.slstm_every or (L + 1)
+    n_s = L // period
+    out, mi, si, done = [], 0, 0, 0
+    while done < L:
+        take = min(period - 1, L - done - (1 if si < n_s else 0))
+        if take > 0:
+            out.append(("m", mi, take))
+            mi += take
+            done += take
+        if si < n_s and done < L:
+            out.append(("s", si, 1))
+            si += 1
+            done += 1
+    return out
+
+
+def _stacked(one: Dict[str, torch.Tensor], n: int, device):
+    return {k: torch.zeros((n, *t.shape), dtype=t.dtype, device=device)
+            for k, t in one.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
                kv_dtype=torch.bfloat16) -> Dict[str, Any]:
     """``attn``: (n_layers, batch, max_seq, K, Dh) keys and values.
     ``mamba_shared_attn``: keys and values per shared-block application,
     and per layer the fp32 SSM state (n_layers, batch, H, N, P) and the
-    conv window (n_layers, batch, K - 1, C) in bf16.  All zeroed."""
+    conv window (n_layers, batch, K - 1, C) in bf16.  ``xlstm``: per mLSTM
+    layer the fp32 state (n_m, batch, H, P, P + 1), per sLSTM layer its
+    fp32 h, c, n, m (n_s, batch, H, P); no keys or values.  All zeroed."""
     _require_ported(cfg)
+    if cfg.block_pattern == "xlstm":
+        n_m, n_s = _xlstm_counts(cfg)
+        cache = {"mlstm": _stacked(
+            xlstm.init_mlstm_cache(cfg, batch, "meta"), n_m, device)}
+        if n_s:
+            cache["slstm"] = _stacked(
+                xlstm.init_slstm_cache(cfg, batch, "meta"), n_s, device)
+        return cache
     kv = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     if cfg.block_pattern == "attn":
         n_kv, cache = cfg.n_layers, {}
     else:
         n_kv = _n_apps(cfg)
-        one = mamba2.init_mamba2_cache(cfg, batch, device)
-        cache = {"mamba": {k: torch.zeros((cfg.n_layers, *t.shape),
-                                          dtype=t.dtype, device=device)
-                           for k, t in one.items()}}
+        cache = {"mamba": _stacked(
+            mamba2.init_mamba2_cache(cfg, batch, "meta"), cfg.n_layers,
+            device)}
     cache["k"] = torch.zeros((n_kv, *kv), dtype=kv_dtype, device=device)
     cache["v"] = torch.zeros((n_kv, *kv), dtype=kv_dtype, device=device)
     return cache
@@ -141,6 +195,14 @@ def _mamba_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
     return x + mamba2.mamba2_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
 
 
+def _mlstm_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
+    return x + xlstm.mlstm_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
+
+
+def _slstm_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
+    return x + xlstm.slstm_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
+
+
 def _apply(fn, remat: bool, *args):
     if remat:
         return checkpoint(fn, *args, use_reentrant=False)
@@ -151,24 +213,28 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S).  Returns (logits (B, S, V) in the parameters' dtype,
-    aux loss = 0 for both ported patterns).  ``remat`` recomputes each
+    aux loss = 0 for every ported pattern).  ``remat`` recomputes each
     layer (and each application of zamba2's shared block) in the backward
     pass and keeps only its input, as the reference's
-    ``jax.checkpoint(nothing_saveable)`` over the layer scan."""
+    ``jax.checkpoint(nothing_saveable)`` over the layer scan (and its
+    ``jax.checkpoint`` of each sLSTM layer)."""
     _require_ported(cfg)
     if frontend_embeds is not None:
         raise NotImplementedError("frontend embeddings are not ported (no "
                                   "ported config has a frontend)")
     x = params["embed"][tokens]                              # (B, S, d)
-    S = x.shape[1]
-    rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
-    cos, sin = rope_frequencies(cfg.resolved_head_dim, S, cfg.rope_theta,
-                                rotary_dim=rd, device=x.device)
-    if cfg.block_pattern == "attn":
-        for blk in _unstack(params["blocks"], cfg.n_layers):
-            x = _apply(_block_fwd, remat, blk, x, cos, sin, cfg)
+    if cfg.block_pattern == "xlstm":
+        x = _xlstm_forward(params, cfg, x, remat)
     else:
-        x = _hybrid_forward(params, cfg, x, cos, sin, remat)
+        S = x.shape[1]
+        rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
+        cos, sin = rope_frequencies(cfg.resolved_head_dim, S, cfg.rope_theta,
+                                    rotary_dim=rd, device=x.device)
+        if cfg.block_pattern == "attn":
+            for blk in _unstack(params["blocks"], cfg.n_layers):
+                x = _apply(_block_fwd, remat, blk, x, cos, sin, cfg)
+        else:
+            x = _hybrid_forward(params, cfg, x, cos, sin, remat)
     x = rms_norm(x, params["final_ln_scale"])
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return torch.matmul(x, head), torch.zeros((), dtype=torch.float32,
@@ -183,6 +249,25 @@ def _hybrid_forward(params, cfg: ArchConfig, x, cos, sin, remat: bool):
         x = _apply(_block_fwd, remat, params["shared_attn"], x, cos, sin, cfg)
         for blk in blocks[g:g + cfg.attn_every]:
             x = _apply(_mamba_fwd, remat, blk, x, cfg)
+    return x
+
+
+def _xlstm_blocks(params, cfg: ArchConfig):
+    n_m, n_s = _xlstm_counts(cfg)
+    return (_unstack(params["mlstm_blocks"], n_m),
+            _unstack(params["slstm_blocks"], n_s) if n_s else [])
+
+
+def _xlstm_forward(params, cfg: ArchConfig, x, remat: bool):
+    """xlstm: the runs of mLSTM layers and the sLSTM layers between them,
+    in the reference's order (:func:`_xlstm_layout`)."""
+    mblocks, sblocks = _xlstm_blocks(params, cfg)
+    for kind, first, n in _xlstm_layout(cfg):
+        if kind == "m":
+            for blk in mblocks[first:first + n]:
+                x = _apply(_mlstm_fwd, remat, blk, x, cfg)
+        else:
+            x = _apply(_slstm_fwd, remat, sblocks[first], x, cfg)
     return x
 
 
@@ -213,10 +298,16 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
                 cache: Dict[str, Any], token: torch.Tensor,
                 pos: int) -> torch.Tensor:
     """token: (B,) int; pos: the token's position.  Writes the token's keys
-    and values (and, for zamba2, each layer's SSM state and conv window)
-    into ``cache`` in place and returns logits (B, V)."""
+    and values (for zamba2 also each layer's SSM state and conv window; for
+    xlstm each layer's recurrent state instead) into ``cache`` in place
+    and returns logits (B, V)."""
     _require_ported(cfg)
     x = params["embed"][token]                               # (B, d)
+    if cfg.block_pattern == "xlstm":
+        x = _xlstm_decode(params, cfg, cache, x)
+        x = rms_norm(x, params["final_ln_scale"])
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return x @ head
     rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
     cos, sin = rope_at(pos, rd, cfg.rope_theta, x.device)
     if cfg.block_pattern == "attn":
@@ -241,4 +332,21 @@ def _hybrid_decode(params, cfg: ArchConfig, cache, x, pos, cos, sin):
             h = rms_norm(x, blk["ln1_scale"])
             x = x + mamba2.mamba2_decode(blk, h, {"ssm": ssm[i],
                                                   "conv": conv[i]}, cfg)
+    return x
+
+
+def _xlstm_decode(params, cfg: ArchConfig, cache, x):
+    mblocks, sblocks = _xlstm_blocks(params, cfg)
+    for kind, first, n in _xlstm_layout(cfg):
+        for i in range(first, first + n):
+            if kind == "m":
+                blk = mblocks[i]
+                x = x + xlstm.mlstm_decode(
+                    blk, rms_norm(x, blk["ln1_scale"]),
+                    {"state": cache["mlstm"]["state"][i]}, cfg)
+            else:
+                blk = sblocks[i]
+                x = x + xlstm.slstm_decode(
+                    blk, rms_norm(x, blk["ln1_scale"]),
+                    {k: t[i] for k, t in cache["slstm"].items()}, cfg)
     return x

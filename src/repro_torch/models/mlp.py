@@ -2,8 +2,8 @@
 leaves its products to ``torch.matmul`` (as the reference leaves them to
 XLA); :func:`mlp_decode` sends each product of the one-token decode
 through the ``tiered_matmul`` kernel.  The plain two-layer MLP of other
-families is queued in ROADMAP.md (queue 1: "The other eight configs and
-the moe family")."""
+families is queued in ROADMAP.md (queue 1: "The moe family and the other
+five configs")."""
 
 from __future__ import annotations
 
@@ -56,4 +56,4 @@ def _require_gated(cfg: ArchConfig) -> None:
     if cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_type {cfg.mlp_type!r} is not ported yet (ROADMAP.md, "
-            "queue 1: 'The other eight configs and the moe family')")
+            "queue 1: 'The moe family and the other five configs')")

@@ -2,9 +2,12 @@
 runtime (counterpart of the reference package's ``serve/engine.py``).
 
 Prefill is a scanned decode, as in the reference: the prompt is fed one
-token per step through the same decode step.  With a ``runtime`` the
-engine registers its params and KV cache as runtime data objects and runs
-each ``generate`` as one runtime iteration with ``prefill`` and ``decode``
+token per step through the same decode step, so every cache family is
+served alike -- keys and values (``attn``), keys and values with Mamba-2
+states (zamba2), or the mLSTM and sLSTM states alone (xlstm).  With a
+``runtime`` the engine registers its params and that cache (as
+``kv_cache``, whichever family) as runtime data objects and runs each
+``generate`` as one runtime iteration with ``prefill`` and ``decode``
 phases.
 """
 

@@ -398,7 +398,13 @@ SSD_CASES = [
     (2, 3, 256, 16, 16, 256, False, False), (2, 8, 24, 16, 16, 24, True,
                                              False),
     (1, 4, 1000, 64, 64, 256, True, True), (1, 2, 130, 8, 96, 64, True,
-                                            True)]
+                                            True),
+    # the wide route (N or P above 64): the one-head reduced xlstm's state
+    # (N 128, P 129) over 600 positions, the last chunk ragged; N above 64
+    # with k and q broadcast; P above 64 and no multiple of 4
+    (2, 1, 600, 128, 129, 256, False, True),
+    (1, 2, 130, 96, 40, 64, True, False),
+    (1, 2, 200, 40, 101, 64, False, True)]
 
 
 def _check_ssd_kernels(B, H, S, N, P, chunk, bcast, init, near1):
@@ -412,8 +418,9 @@ def _check_ssd_kernels(B, H, S, N, P, chunk, bcast, init, near1):
     yp, finp, stp = ss._plain_forward(a, k, v, q, chunk, s0)
     for got, want in ((y, yp), (fin, finp), (states, stp)):
         torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
-    if P > 64:          # the backward kernel takes P <= 64
-        return
+    # the normalizer's column of an mLSTM (the ragged P tile) on its own
+    torch.testing.assert_close(y[..., -1], yp[..., -1], rtol=SSD_TOL,
+                               atol=SSD_TOL)
     dy = _randn((B, H, S, P), torch.float32, 14)
     dfin = _randn((B, H, N, P), torch.float32, 15)
     grads = ss.ssd_scan_bwd(a, k, v, q, dy, states, fin, dfin, chunk, init)
@@ -478,9 +485,46 @@ def test_ssd_scan_bwd_dloga_at_the_training_shape_beats_the_plain_version(
                                atol=SSD_TOL)
 
 
+@pytest.mark.parametrize("near1", [False, True])
+def test_ssd_scan_kernels_at_xlstms_training_shape_meet_float64(cuda, near1):
+    """xlstm-350m's mLSTM training shape (B 2, H 4, S 2048, N 512, P 513,
+    chunks of 256, k and q per head): the forward within SSD_TOL of the
+    plain version; every output of the backward within SSD_TOL of the
+    plain version run in float64, under xLSTM's decays (a sigmoid) and
+    near 1: there the fp32 plain version, summing 512- and 513-deep
+    products, itself lies up to 3e-4 from float64 in dq and dv (H100)."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    B, H, S, N, P, chunk = _ssd_shape("xlstm")
+    a, k, v, q = _ssd_inputs(B, H, S, N, P, 31, False, near1)
+    dy = _randn((B, H, S, P), torch.float32, 32)
+    y, fin, states = ss.ssd_scan_fwd(a, k, v, q, chunk, save_states=True)
+    yp, finp, stp = ss._plain_forward(a, k, v, q, chunk)
+    for name, got, want in (("y", y, yp), ("final", fin, finp),
+                            ("states", states, stp)):
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL,
+                                   msg=name)
+    grads = ss.ssd_scan_bwd(a, k, v, q, dy, states, fin, None, chunk, False)
+    wide = [t.double() for t in (a, k, v, q)]
+    _, fin64, st64 = ss._plain_forward(*wide, chunk)
+    want = ss.ssd_scan_bwd_plain(*wide, dy.double(), st64, fin64, None,
+                                 chunk, False)
+    torch.testing.assert_close((grads[0] * a).double(),
+                               want[0] * a.double(), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+    for name, g, w in zip(("dk", "dv", "dq"), grads[1:4], want[1:4]):
+        torch.testing.assert_close(g.double(), w, rtol=SSD_TOL, atol=SSD_TOL,
+                                   msg=name)
+
+
 def _ssd_shape(shape):
     """(B, H, S, N, P, chunk): zamba2-1.2b's training shape ("train"), the
-    ragged (1, 4, 1000) one, or the reduced config's chunks of 64."""
+    ragged (1, 4, 1000) one, the reduced config's chunks of 64, or the wide
+    route's: xlstm-350m's training shape ("xlstm": N 512, P 513) and the
+    one-head reduced xlstm's state over a ragged 600 ("wide_ragged")."""
+    if shape == "xlstm":
+        return (2, 4, 2048, 512, 513, 256)
+    if shape == "wide_ragged":
+        return (2, 1, 600, 128, 129, 256)
     if shape == "reduced":
         from repro_torch.configs import get_config
         zr = get_config("zamba2-1.2b").reduced()
@@ -490,7 +534,8 @@ def _ssd_shape(shape):
             else (1, 4, 1000, 64, 64, 256))
 
 
-@pytest.mark.parametrize("shape", ["train", "ragged", "reduced"])
+@pytest.mark.parametrize("shape", ["train", "ragged", "reduced", "xlstm",
+                                   "wide_ragged"])
 def test_ssd_scan_fwd_gives_the_same_bits_on_every_call(cuda, shape):
     """Two calls of the forward on the same inputs give the same y, final
     state and chunk states, bit for bit: no atomics and a fixed order of
@@ -508,7 +553,8 @@ def test_ssd_scan_fwd_gives_the_same_bits_on_every_call(cuda, shape):
 
 @pytest.mark.parametrize("B,H,S,N,P,chunk,bcast", [
     (2, 3, 300, 32, 64, 128, False), (1, 4, 1000, 64, 64, 256, True),
-    (1, 2, 130, 6, 12, 64, True)])
+    (1, 2, 130, 6, 12, 64, True), (2, 1, 600, 128, 129, 256, False),
+    (1, 2, 130, 96, 40, 64, True)])
 def test_ssd_scan_fwd_ignores_stale_shared_memory(cuda, B, H, S, N, P, chunk,
                                                   bcast):
     """Every SM's shared memory filled with NaN just before the forward: a
@@ -526,7 +572,8 @@ def test_ssd_scan_fwd_ignores_stale_shared_memory(cuda, B, H, S, N, P, chunk,
         torch.testing.assert_close(g, w, rtol=SSD_TOL, atol=SSD_TOL, msg=name)
 
 
-@pytest.mark.parametrize("shape", ["train", "ragged", "reduced"])
+@pytest.mark.parametrize("shape", ["train", "ragged", "reduced", "xlstm",
+                                   "wide_ragged"])
 def test_ssd_scan_bwd_gives_the_same_bits_on_every_call(cuda, shape):
     """Two calls of the backward on the same inputs give the same bits: no
     atomics and a fixed order of every sum, in each of its three launches.
@@ -552,14 +599,15 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ss.ssd_scan(a, k.bfloat16(), v, q)
     with pytest.raises(ValueError, match="chunk"):
         ss.ssd_scan(a, k, v, q, chunk=512)
-    a2, k2, v2, q2 = _ssd_inputs(1, 2, 40, 80, 16, 0, False)
-    with pytest.raises(ValueError, match="N <= 64"):
-        ss.ssd_scan(a2, k2, v2, q2)
-    a3, k3, v3, q3 = _ssd_inputs(1, 2, 40, 16, 80, 0, False)
-    y, _, states = ss.ssd_scan_fwd(a3, k3, v3, q3, 256, save_states=True)
-    with pytest.raises(ValueError, match="P <= 64"):
-        ss.ssd_scan_bwd(a3, k3, v3, q3, y, states, y[:, :, 0], None, 256,
-                        False)
+    k_t = k.transpose(2, 3).contiguous().transpose(2, 3)  # N of stride S
+    with pytest.raises(ValueError, match="unit stride"):
+        ss.ssd_scan(a, k_t, v, q)
+    # any N and P: a state wider than 64 takes the wide route
+    before = (ss.launches, ss.bwd_launches)
+    a3, k3, v3, q3 = _ssd_inputs(1, 2, 40, 80, 80, 0, False)
+    y, fin, states = ss.ssd_scan_fwd(a3, k3, v3, q3, 256, save_states=True)
+    ss.ssd_scan_bwd(a3, k3, v3, q3, y, states, fin, None, 256, False)
+    assert (ss.launches, ss.bwd_launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_reduced_zamba2_forward_and_decode_on_card_match_the_cpu(cuda):

@@ -379,11 +379,13 @@ def test_forward_loss_and_every_gradient_match_reference(gemma, gemma_ref,
 
 
 def test_lm_refuses_other_patterns():
+    """What is still unported: the MoE family and ``layer`` norm."""
     cfg = get_config("gemma-2b").reduced()
     import dataclasses
-    other = dataclasses.replace(cfg, block_pattern="xlstm")
-    with pytest.raises(NotImplementedError):
-        port_lm.forward({}, other, torch.zeros((1, 4), dtype=torch.long))
+    for other in (dataclasses.replace(cfg, moe_experts=4, moe_top_k=2),
+                  dataclasses.replace(cfg, norm="layer")):
+        with pytest.raises(NotImplementedError, match="moe family"):
+            port_lm.forward({}, other, torch.zeros((1, 4), dtype=torch.long))
 
 
 # ------------------------------------------------------------------- AdamW
@@ -599,21 +601,24 @@ def test_port_checkpoint_restores_bit_for_bit_in_reference(tmp_path):
 
 
 # ---------------------------------------------------------------- pipeline
+def _cpu_pipeline(cfg):
+    return SyntheticTokenPipeline(cfg, device="cpu")    # the card by default
+
+
 def test_pipeline_is_deterministic_and_follows_the_markov_rule():
     cfg = DataConfig(vocab_size=997, seq_len=64, global_batch=3, seed=11)
-    a = SyntheticTokenPipeline(cfg).batch_at(5)["tokens"].numpy()
-    b = SyntheticTokenPipeline(cfg).batch_at(5)["tokens"].numpy()
-    c = SyntheticTokenPipeline(cfg).batch_at(6)["tokens"].numpy()
+    a = _cpu_pipeline(cfg).batch_at(5)["tokens"].numpy()
+    b = _cpu_pipeline(cfg).batch_at(5)["tokens"].numpy()
+    c = _cpu_pipeline(cfg).batch_at(6)["tokens"].numpy()
     assert a.shape == (3, 64) and (a == b).all() and not (a == c).all()
     assert ((a[:, 1::2] == (a[:, 0::2] * 31 + 7) % 997)).all()
     assert a.min() >= 0 and a.max() < 997
     # the unigram permutation is the reference's (both draw it with numpy)
     ref_perm = importlib.import_module("repro.data.pipeline") \
         .SyntheticTokenPipeline(RefDataConfig(997, 64, 3, seed=11))._perm
-    np.testing.assert_array_equal(SyntheticTokenPipeline(cfg)._perm,
-                                  ref_perm)
+    np.testing.assert_array_equal(_cpu_pipeline(cfg)._perm, ref_perm)
     # Zipf: the most frequent token of many draws is the permutation's first
-    many = SyntheticTokenPipeline(DataConfig(997, 256, 64, seed=11))
+    many = _cpu_pipeline(DataConfig(997, 256, 64, seed=11))
     even = many.batch_at(0)["tokens"].numpy()[:, 0::2]
     assert np.bincount(even.ravel()).argmax() == ref_perm[0]
 
