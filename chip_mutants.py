@@ -56,7 +56,14 @@ command line run those mutants only.  The mutants:
   out), ``empty_barrier_not_awaited`` (the producer refills a ring stage
   before the consumers release it), ``last_k_tile_skipped`` (the ragged
   last 64-row stage of K is not read), ``ragged_n_unmasked`` (columns past
-  N of the last tile are written).
+  N of the last tile are written);
+- tiered_matmul's expert route (its checks at moonshot-v1-16b-a3b's and
+  dbrx-132b's decode shapes and the edge cases, both dtypes):
+  ``expert_index_ignored`` (every slot's weight tiles come from expert 0),
+  ``group_rows_capped_at_8`` (an expert's rows past its first tile are
+  never computed), ``ranks_restart_every_32_rows`` (an expert's rows are
+  ranked within each warp-wide chunk of 32 rows only, so past row 31 the
+  tiles take the wrong rows).
 """
 
 import json
@@ -145,6 +152,13 @@ MUTANTS = {
         "  const int kt_total = a.K / kBK;", "matmul"),
     "ragged_n_unmasked": (
         MATMUL, "min(kBN, a.N - n0)", "kBN", "matmul"),
+    "expert_index_ignored": (
+        MATMUL, "(kt0 + i) * kBK, ex,", "(kt0 + i) * kBK, 0,", "experts"),
+    "group_rows_capped_at_8": (
+        MATMUL, "const int tiles = (counts[e] + tm - 1) / tm;",
+        "const int tiles = min(counts[e], 1);", "experts"),
+    "ranks_restart_every_32_rows": (
+        MATMUL, "      seen += __popc(ballot);\n", "", "experts"),
 }
 _HEAD = r'''
 import json, sys, torch
@@ -220,6 +234,13 @@ shapes += [(4, K, N) for arch in ("yi-6b", "chatglm3-6b")
 rows = [cs._matmul_case(None, dt, M, K, N, gen)
         for dt in (torch.float32, torch.bfloat16) for M, K, N in shapes]
 for r in rows + cs._matmul_edge_cases(gen):
+    print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
+                          err=r["max_abs_err"],
+                          same=r["bit_identical_rerun"])), flush=True)
+''',
+    # chip_smoke.py's expert-route cases, untimed
+    "experts": _HEAD + r'''
+for r in cs._experts_cases(None, gen):
     print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
                           err=r["max_abs_err"],
                           same=r["bit_identical_rerun"])), flush=True)

@@ -21,9 +21,14 @@ result line) if any phase fails:
                (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
-               shapes of gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b and
+               shapes of gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b,
                xlstm-350m (the SSD kernels' wide route; v's rows as the
-               model pads them, and unpadded), with kernel / plain /
+               model pads them, and unpadded), moonshot-v1-16b-a3b and
+               dbrx-132b (decode at G 1 and 6, the flash pair at G 6, the
+               attention and shared-expert products, and tiered_matmul's
+               expert route at both models' decode shapes and edge
+               cases: every row on one expert, experts no row picks),
+               with kernel / plain /
                bound / library times and the launch floor (an empty
                kernel); the flash-attention and SSD-scan backward kernels
                against autograd through the plain forward, the SSD one's
@@ -37,11 +42,12 @@ result line) if any phase fails:
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
-5. parity   -- reduced gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b and
-               xlstm-350m, fp32 weights, the card against the CPU; yi-6b
-               and chatglm3-6b also at their real G (8 and 16 query heads
-               over one KV head), xlstm-350m also at one head (N 128, P 129:
-               the SSD forward's wide route);
+5. parity   -- reduced gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b,
+               xlstm-350m, moonshot-v1-16b-a3b and dbrx-132b, fp32 weights,
+               the card against the CPU; yi-6b, chatglm3-6b and dbrx-132b
+               also at their real G (8, 16 and 6 query heads over one KV
+               head), xlstm-350m also at one head (N 128, P 129: the SSD
+               forward's wide route);
 6. sim      -- the discrete-event simulator on the card's host: the
                quickstart's CG workload DRAM-only, NVM-only and under
                Unimem, twice (same plan digest and iteration times), and
@@ -66,13 +72,22 @@ result line) if any phase fails:
                layers: 21 mLSTM with a 512 x 513 state a head, 3 sLSTM;
                d_model 1024) served as gemma-2b is, and trained for 5 steps
                of batch 2 x 2048 twice (the same losses, bit for bit);
-14. kernels -- one line with each kernel's numbers.
+14. serve_moonshot, serve_dbrx, train_moonshot -- full-width,
+               full-depth moonshot-v1-16b-a3b (48 layers of 64 experts,
+               top-6, 2 shared) and dbrx-132b cut to 8 of its 40 layers (16
+               experts, top-4, layer norm, G 6: 263 GB of weights fit no
+               tier) served as gemma-2b is, each routed product one launch
+               of the expert route; moonshot cut to 4 layers trained for 5
+               steps of batch 2 x 2048 twice (the same losses, bit for bit:
+               the dispatch is deterministic);
+15. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
 at DIR (the parent commit) in this run and puts them in the kernels line.
 The serve phases require every product of a decode step to be one launch
-of the tensor-core matmul kernel, and report device operations a step.
+of the tensor-core matmul kernel (the MoE layers' routed products one of
+its expert route), and report device operations a step.
 ``--compare-matmul DIR`` only times the serving products through this
 checkout's tiered_matmul and through that of the checkout at DIR (see
 ``compare_matmul``); ``--slstm-autograd`` only times one sLSTM layer's
@@ -117,7 +132,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, fill_shared_memory_nan)
 from repro_torch.kernels.ref import decode_attention_f64  # noqa: E402
 from repro_torch.kernels import tiered_matmul as mm  # noqa: E402
-from repro_torch.models import lm, xlstm  # noqa: E402
+from repro_torch.models import lm, moe, xlstm  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state)
@@ -171,11 +186,22 @@ PARITY_TOL = 1e-4
 # PARITY_TOL, as the forward is), and 0.70 with a decode kernel that drops
 # the newest key
 ZAMBA_DECODE_TOL = 1e-3
+# The MoE configs' decode keeps its KV cache in bf16 (as the reference
+# does): where the card's and the CPU's fp32 keys straddle a bf16 rounding
+# boundary a cached value rounds an ulp apart.  On an H100 reduced
+# moonshot-v1-16b-a3b's logits lay 4.7e-4 apart so (greedy tokens
+# identical, its 600-position forward 1.2e-5); with the KV cache in fp32
+# on both sides they are held to PARITY_TOL
+MOE_DECODE_TOL = 1e-3
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
     "tiered_matmul": ("src/repro_torch/csrc/tiered_matmul.cu",
                       "src/repro/kernels/tiered_matmul.py:50"),
+    # a route of the same kernel: the reference computes the experts'
+    # products with jnp.einsum over a dense buffer (models/moe.py:114-117)
+    "tiered_matmul_experts": ("src/repro_torch/csrc/tiered_matmul.cu",
+                              "src/repro/kernels/tiered_matmul.py:50"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:85"),
     # the TPU kernel has no backward: JAX differentiates its twin
@@ -189,6 +215,9 @@ KERNELS = {
     "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
                      "src/repro/kernels/ssd_scan.py:23"),
 }
+# the sources the kernels are built from, by name (csrc/<name>.cu)
+SOURCES = sorted({os.path.basename(src)[:-3]
+                  for src, _ in KERNELS.values()})
 TRAIN_SHAPE = (2, 1, 8, 2048, 2048, 256)       # B, K, G, S, T, D
 # zamba2-1.2b's training step (batch 2 x 4096): the shared block's
 # attention (32 heads over 32 KV heads of 64) and the SSD scan (64 heads,
@@ -198,8 +227,11 @@ ZAMBA_FLASH_SHAPE = (2, 32, 1, 4096, 4096, 64)
 # KV heads (G 8) and over 2 (G 16), D 128
 YI_FLASH_SHAPE = (2, 4, 8, 2048, 2048, 128)
 GLM_FLASH_SHAPE = (2, 2, 16, 2048, 2048, 128)
+# dbrx-132b's attention at batch 2 x 2048: 48 heads over 8 KV heads (G 6),
+# D 128
+DBRX_FLASH_SHAPE = (2, 8, 6, 2048, 2048, 128)
 TIMED_FLASH_SHAPES = (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE,
-                      GLM_FLASH_SHAPE)
+                      GLM_FLASH_SHAPE, DBRX_FLASH_SHAPE)
 # the train paths of the 6-billion-parameter configs keep this many layers
 # and train at this rate: Adam's first steps move every weight by about lr,
 # so a layer's output by about fan-in x lr, and at d_model 4096 the losses
@@ -222,6 +254,16 @@ XLSTM_SSD_SHAPE = (2, 4, 2048, 512, 513, 256)
 # floats (models/xlstm.py, _augment)
 XLSTM_V_ROW = -(-(XLSTM_SSD_SHAPE[4]) // 4) * 4
 TIMED_SSD_SHAPES = (SSD_TRAIN_SHAPE, XLSTM_SSD_SHAPE)
+# dbrx-132b serves 8 of its 40 layers: its 263 GB of bf16 weights fit
+# neither the card (80 GB) nor the host tier (108 GB); 8 layers and the
+# embedding and head are ~55 GB
+DBRX_SERVE_LAYERS = 8
+# moonshot-v1-16b-a3b trains 4 of its 48 layers: the whole model's training
+# state is 462 GB at 16 bytes a parameter, 4 layers' with the embedding and
+# head 48 GB.  It trains at gemma-2b's rate, 3e-4 (the same d_model, 2048):
+# its losses fell over the 5 steps from a random init (H100)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LR = 3e-4
 
 
 def emit(obj) -> None:
@@ -288,6 +330,8 @@ def phase_device() -> dict:
 # Kernels, by name, and the tensor-core instruction each instantiation must
 # run: wgmma (HGMMA), mma.sync in bf16 or TF32 (HMMA) or in fp64 (DMMA).
 TENSOR_CORE_KERNELS = {
+    "tiered_matmul": {"tiered_mma_kernel": "HMMA",
+                      "tiered_experts_mma_kernel": "HMMA"},
     "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
     "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"},
     "ssd_scan": {"ssd_fwd_chunk_kernel": "HMMA",
@@ -333,8 +377,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     # these compiled even when their libraries exist, so that their ptxas
     # reports are read in every run
-    reports = build.build(list(KERNELS), fresh=list(NO_SPILL))
-    for name in KERNELS:
+    reports = build.build(SOURCES, fresh=list(NO_SPILL))
+    for name in SOURCES:
         build.load(name)
     sass = {name: _sass_counts(name) for name in TENSOR_CORE_KERNELS}
     for name in NO_SPILL:
@@ -507,6 +551,124 @@ def _matmul_edge_cases(gen) -> list:
     return rows + [_matmul_case(None, torch.bfloat16, M, K, N, gen,
                                 stale_nan=True)
                    for M, K, N in MATMUL_STALE_CASES]
+
+
+def _decode_experts(B: int, k: int, E: int, gen) -> torch.Tensor:
+    """Expert indices of a decode step's B k rows, int32 on the card: each
+    token's k distinct experts drawn at random (row b k + j: token b's
+    j-th), as the router's top-k gives them."""
+    scores = torch.rand((B, E), generator=gen, device="cuda")
+    return scores.topk(k, dim=-1).indices.reshape(-1).to(torch.int32)
+
+
+def _experts_case(timer, dtype, R, E, K, N, gen, expert, name=None,
+                  tokens=None):
+    """The expert route against its plain version, on rows whose experts
+    are ``expert`` (R,); the same inputs again must give the same bits.
+    Timed beside the plain version and, at a decode shape (``tokens`` =
+    B), ``torch.bmm`` over all E experts on the reference's dense (E, B C,
+    K) buffer (C = 8, each token in its slot 0 of each routed expert):
+    the one call that computes the reference's expert product.  The bound
+    counts the routed experts' weights, each read once."""
+    x = (torch.randn((R, K), generator=gen, device="cuda") * 0.1).to(dtype)
+    w = (torch.randn((E, K, N), generator=gen, device="cuda")
+         * 0.1).to(dtype)
+    out = ops.tiered_matmul_experts(x, w, expert)
+    again = ops.tiered_matmul_experts(x, w, expert)
+    plain = mm.tiered_matmul_experts_plain(x, w, expert)
+    torch.cuda.synchronize()
+    err, ok = _compare(out, plain, dtype)
+    same = torch.equal(out, again)
+    per = torch.bincount(expert.long(), minlength=E)
+    routed = int((per > 0).sum().item())
+    route = mm.route(x, w[0])
+    n_split, k_chunk = mm.plan(
+        mm._expert_rows(R, E, route), N, K, route,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    row = dict(
+        phase="check", kernel="tiered_matmul_experts", dtype=str(dtype)[6:],
+        shape=dict(R=R, E=E, K=K, N=N, product=name, routed=routed,
+                   most_rows_an_expert=int(per.max().item()),
+                   tokens=tokens),
+        route=route, plan=dict(n_split=n_split, k_chunk=k_chunk),
+        max_abs_err=err, bit_identical_rerun=same, tol=TOL[dtype],
+        ok=ok and same)
+    del plain, again
+    if timer is None:
+        return row
+    size = x.element_size()
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        (R * K + routed * K * N + R * N) * size, 2.0 * R * N * K, dtype)
+    row["ms"] = timer(lambda: ops.tiered_matmul_experts(x, w, expert))
+    row["plain_ms"] = timer(
+        lambda: mm.tiered_matmul_experts_plain(x, w, expert))
+    row["library_ms"] = None
+    if tokens:
+        C = 8
+        buf = torch.zeros((E, tokens * C, K), dtype=dtype, device="cuda")
+        k = R // tokens
+        buf[expert.long(), torch.arange(R, device="cuda") // k * C] = x
+        row["library_ms"] = timer(lambda: torch.bmm(buf, w))
+        row["library"] = ("torch.bmm over all E experts on the reference's "
+                          "dense (E, B C, K) buffer, C = 8")
+    row["host_us"] = _host_us(lambda: ops.tiered_matmul_experts(x, w, expert),
+                              200)
+    return row
+
+
+def _moe_layer_products(cfg) -> list:
+    """An MoE layer's decode products through ``tiered_matmul``, (name, K,
+    N): its attention's 4 and, with shared experts, their 3."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    out = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
+           ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d)]
+    fs = cfg.moe_d_ff * cfg.moe_shared_experts
+    if fs:
+        out += [("shared_gate", d, fs), ("shared_up", d, fs),
+                ("shared_down", fs, d)]
+    return out
+
+
+def _moe_products(cfg) -> list:
+    """An MoE layer's routed decode products, (name, K, N): w_gate, w_up
+    (d x f) and w_down (f x d) of each expert."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    return [("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+
+
+def _experts_cases(timer, gen) -> list:
+    """The expert route at moonshot-v1-16b-a3b's and dbrx-132b's decode
+    shapes (batch 4: 24 rows over 64 experts of 2048 x 1408 and 1408 x
+    2048; 16 rows over 16 of 6144 x 10752 and 10752 x 6144), bf16 timed
+    and fp32 untimed; then untimed edge cases: every row on one expert
+    (more than 8 rows: 8-row tiles, 4-row tiles in the FFMA kernel), R no
+    multiple of 8 with experts no row picks, K and N multiples of no tile,
+    N no multiple of 8 (bf16 on the FFMA kernel), R above 32 (the kernel
+    ranks rows a warp-wide chunk of 32 at a time)."""
+    rows = []
+    for arch in ("moonshot-v1-16b-a3b", "dbrx-132b"):
+        acfg = get_config(arch)
+        B, E, k = 4, acfg.moe_experts, acfg.moe_top_k
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, K, N in _moe_products(acfg):
+                rows.append(_experts_case(
+                    timer if dtype == torch.bfloat16 else None, dtype, B * k,
+                    E, K, N, gen, _decode_experts(B, k, E, gen),
+                    f"{arch}:{name}", B))
+                torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, E, K, N, expert in (
+                (20, 16, 2048, 1408, [5] * 20),
+                (9, 4, 1408, 2048, [3] * 9),
+                (13, 8, 2048, 1408, [i % 7 for i in range(13)]),
+                (13, 8, 100, 264, [6 - i % 5 for i in range(13)]),
+                (5, 3, 1000, 13, [2, 0, 2, 2, 0]),
+                (40, 64, 2048, 1408, [i * 7 % 64 for i in range(40)]),
+                # 20 rows an expert, spread over two warp-wide chunks of 32
+                (40, 2, 256, 264, [i % 2 for i in range(40)])):
+            ex = torch.tensor(expert, dtype=torch.int32, device="cuda")
+            rows.append(_experts_case(None, dtype, R, E, K, N, gen, ex))
+    return rows
 
 
 def _visible_pairs(S: int, T: int, causal: bool) -> int:
@@ -937,6 +1099,20 @@ def phase_check(timer) -> list:
         for name, K, N in _xlstm_products(get_config("xlstm-350m")):
             rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
                                      "xlstm-350m:" + name))
+        # moonshot-v1-16b-a3b's decode (G 1, K 16, D 128) and dbrx-132b's
+        # (G 6: the kernel's block of 8 heads with 2 masked; K 8, D 128)
+        # over one layer's cache view, and each layer's attention and
+        # shared-expert products
+        for arch in ("moonshot-v1-16b-a3b", "dbrx-132b"):
+            acfg = get_config(arch)
+            for length in (0, 1, 160, 1024):
+                rows.append(_decode_case(
+                    timer, dtype, 4, acfg.n_kv_heads,
+                    acfg.n_heads // acfg.n_kv_heads,
+                    acfg.resolved_head_dim, 1024, length, True, gen))
+            for name, K, N in _moe_layer_products(acfg):
+                rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
+                                         f"{arch}:{name}"))
         for case in (
                 (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
                 (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
@@ -949,11 +1125,15 @@ def phase_check(timer) -> list:
                 (1, 32, 1, 512, 512, 64, True),     # zamba2's G, K, D
                 # chatglm3-6b's G 16 at D 128, S and T multiples of no tile
                 (1, 2, 16, 300, 300, 128, True),
+                # dbrx-132b's G 6 (no power of 2), causal and not
+                (1, 2, 6, 300, 300, 128, True),
+                (1, 2, 6, 256, 384, 128, False),
                 # peaked scores (q x 8): the running max moves
                 (1, 1, 8, 300, 300, 256, True, 8.0),
                 (1, 32, 1, 512, 512, 64, True, 8.0),
                 (1, 2, 4, 128, 300, 128, False, 8.0),
                 (1, 2, 16, 300, 300, 128, True, 8.0),
+                (1, 2, 6, 300, 300, 128, True, 8.0),
                 TRAIN_SHAPE + (True,)):
             if len(case) > 7 and dtype not in PEAKED_DTYPES:
                 continue
@@ -967,12 +1147,14 @@ def phase_check(timer) -> list:
                                  gen, peak=8.0, against="float64"))
     rows += _stale_shared_cases(gen)
     rows += _matmul_edge_cases(gen)
+    rows += _experts_cases(timer, gen)
     for r in rows:
         if r["kernel"] == "decode_attention" and "ms" in r:
             r["launch_floor_ms"] = floor_ms
-    # zamba2's shared attention in training, then yi-6b's and chatglm3-6b's
-    # attention, bf16 as the paths run them
-    for shape in (ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE, GLM_FLASH_SHAPE):
+    # zamba2's shared attention in training, then yi-6b's, chatglm3-6b's
+    # and dbrx-132b's attention, bf16 as the paths run them
+    for shape in (ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE, GLM_FLASH_SHAPE,
+                  DBRX_FLASH_SHAPE):
         rows += _flash_case(timer, torch.bfloat16, *shape, True, gen)
         torch.cuda.empty_cache()
     zr = zcfg.reduced()
@@ -1129,12 +1311,15 @@ def phase_runtime(timer) -> dict:
     return res
 
 
-def _decode_errors(cfg, cpu, gpu, prompts, S, window=None) -> dict:
+def _decode_errors(cfg, cpu, gpu, prompts, S, window=None,
+                   kv=torch.bfloat16) -> dict:
     """Largest card-vs-CPU distance of the logits over one decode step per
     prompt token and, for zamba2, of each layer's SSM state and conv window
-    after them; ``window`` replaces the conv window's dtype on both sides."""
+    after them; ``window`` replaces the conv window's dtype on both sides,
+    ``kv`` is the KV cache's."""
     B, P = prompts.shape
-    caches = {d: lm.init_cache(cfg, B, S, device=d) for d in ("cpu", "cuda")}
+    caches = {d: lm.init_cache(cfg, B, S, device=d, kv_dtype=kv)
+              for d in ("cpu", "cuda")}
     if window is not None:
         for c in caches.values():
             c["mamba"]["conv"] = c["mamba"]["conv"].to(window)
@@ -1176,8 +1361,10 @@ def phase_parity(arch: str, heads: int = None) -> dict:
                             generator=torch.Generator().manual_seed(1))
     toks = {}
     for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        ops.reset_launch_counts()
         eng = ServeEngine(cfg, params, max_seq=S, batch=B, device=dev)
         toks[dev] = eng.generate(prompts, n_new).cpu()
+    generate_launches = ops.launch_counts()     # the card's
     same = torch.equal(toks["cpu"], toks["cuda"])
     hybrid = cfg.block_pattern == "mamba_shared_attn"
     xlstm = cfg.block_pattern == "xlstm"
@@ -1185,8 +1372,13 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     res = dict(phase="parity", arch=cfg.name, params="float32",
                G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim,
                tokens_identical=same, logits_max_abs_err=dec["logits"],
-               tol=ZAMBA_DECODE_TOL if hybrid else PARITY_TOL,
+               generate_launches=generate_launches,
+               tol=(ZAMBA_DECODE_TOL if hybrid else
+                    MOE_DECODE_TOL if cfg.is_moe else PARITY_TOL),
                forward_tol=PARITY_TOL)
+    if cfg.is_moe:
+        res["decode_fp32_kv_logits_max_abs_err"] = _decode_errors(
+            cfg, cpu, gpu, prompts, S, kv=torch.float32)["logits"]
     if xlstm:
         d_in = cfg.ssm_expand * cfg.d_model
         res["mlstm_state"] = dict(N=d_in // cfg.n_heads,
@@ -1220,6 +1412,13 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     else:
         require(res["forward_launches"]["flash_attention"] == cfg.n_layers,
                 "the forward ran the flash kernel on every layer")
+    if cfg.is_moe:
+        require(res["decode_fp32_kv_logits_max_abs_err"] <= PARITY_TOL,
+                "with an fp32 KV cache, decode logits within PARITY_TOL")
+        require(generate_launches["tiered_matmul_experts"]
+                == 3 * cfg.n_layers * (P + n_new),
+                "every routed product of the card's decode ran the expert "
+                f"route ({generate_launches})")
     require(res["forward_logits_max_abs_err"] <= PARITY_TOL,
             "forward logits within tolerance")
     return res
@@ -1236,7 +1435,13 @@ def _expected_launches(cfg, path: str, steps: int) -> dict:
     chatglm3-6b cut to 8 layers 16 + 8 (train_yi, train_chatglm3).
     xlstm-350m (21 mLSTM, 3 sLSTM layers): serve 3 x 21 + 2 x 3 = 69
     products a step and no attention or SSD launch; train 42 + 21 SSD
-    launches a step, 210 and 105 over 5 steps, and no flash launch."""
+    launches a step, 210 and 105 over 5 steps, and no flash launch.  MoE:
+    serve per layer and step one decode attention, 4 attention products
+    and 3 shared-expert ones (none for dbrx) through tiered_matmul and the
+    3 routed products through its expert route: moonshot-v1-16b-a3b 48,
+    336 and 144 a step, dbrx-132b at 8 layers 8, 32 and 24; train as a
+    dense config (the experts' products go to torch.matmul), moonshot at
+    4 layers 8 + 4 flash launches a step."""
     counts = dict.fromkeys(ops.launch_counts(), 0)
     if cfg.block_pattern == "xlstm":
         n_m, n_s = lm._xlstm_counts(cfg)
@@ -1248,7 +1453,12 @@ def _expected_launches(cfg, path: str, steps: int) -> dict:
         return counts
     L = cfg.n_layers
     attn = L if cfg.block_pattern == "attn" else -(-L // cfg.attn_every)
-    if path == "serve":
+    if path == "serve" and cfg.is_moe:
+        shared = 3 if cfg.moe_shared_experts else 0
+        counts["decode_attention"] = L * steps
+        counts["tiered_matmul"] = (4 + shared) * L * steps
+        counts["tiered_matmul_experts"] = 3 * L * steps
+    elif path == "serve":
         counts["decode_attention"] = attn * steps
         mamba = 2 * L if cfg.block_pattern == "mamba_shared_attn" else 0
         counts["tiered_matmul"] = (7 * attn + mamba) * steps
@@ -1385,21 +1595,49 @@ SERVE_GROUPS = {
     "decode_attention": ["::decode_kernel<"],
     "tiered_matmul": ["::tiered_mma_kernel("],
     "tiered_matmul_ffma": ["::tiered_ffma_kernel<"],
+    "tiered_matmul_experts": ["::tiered_experts_mma_kernel("],
+    "tiered_matmul_experts_ffma": ["::tiered_experts_ffma_kernel<"],
     "splitk_sum": ["splitk_sum_kernel"],
 }
 
 
-def _profile(params, cfg, B, S, steps: int, wall_ms: float) -> dict:
-    """The profile of a few decode steps, after four unprofiled ones."""
+def _profile(params, cfg, prompts, S, steps: int, wall_ms: float) -> dict:
+    """The profile of a few decode steps, after four unprofiled ones, fed
+    a request's prompt tokens (each row its own: rows fed one token would
+    route every row of an MoE layer to the same experts)."""
+    B = prompts.shape[0]
+    toks = prompts.cuda()
     cache = lm.init_cache(cfg, B, S)
-    tok = torch.zeros(B, dtype=torch.long, device="cuda")
     for p in range(4):
-        lm.decode_step(params, cfg, cache, tok, p)
+        lm.decode_step(params, cfg, cache, toks[:, p], p)
 
     def run():
         for p in range(4, 4 + steps):
-            lm.decode_step(params, cfg, cache, tok, p)
+            lm.decode_step(params, cfg, cache, toks[:, p], p)
     return _device_profile(run, steps, wall_ms, SERVE_GROUPS)
+
+
+def _routed_experts(params, cfg, prompts, S, steps: int) -> list:
+    """The distinct experts each MoE layer's decode picks in the steps that
+    :func:`_profile` profiles (replayed unprofiled), from ``moe._route``
+    wrapped from outside the package: one count a layer and step."""
+    counts, real = [], moe._route
+
+    def spy(p, x, c):
+        probs, gates, idx = real(p, x, c)
+        counts.append(int(torch.unique(idx).numel()))
+        return probs, gates, idx
+    toks = prompts.cuda()
+    cache = lm.init_cache(cfg, prompts.shape[0], S)
+    moe._route = spy
+    try:
+        for p in range(4 + steps):
+            if p == 4:
+                counts.clear()
+            lm.decode_step(params, cfg, cache, toks[:, p], p)
+    finally:
+        moe._route = real
+    return counts
 
 
 def _free() -> None:
@@ -1409,11 +1647,14 @@ def _free() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def phase_serve(arch: str, name: str) -> dict:
+def phase_serve(arch: str, name: str, layers: int = None) -> dict:
     """A full-width model, bf16, batch 4, three requests of 128 + 32
-    tokens under the runtime; the third repeats the first."""
+    tokens under the runtime; the third repeats the first.  ``layers``
+    cuts the depth (the row says so under ``reduced``)."""
     _free()
-    cfg = get_config(arch)
+    cfg = full = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(full, n_layers=layers)
     B, P, n_new, S = 4, 128, 32, 1024
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1449,6 +1690,11 @@ def phase_serve(arch: str, name: str) -> dict:
         phase=name, arch=cfg.name, dtype="bfloat16",
         n_params=cfg.n_params(), layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, batch=B, prompt=P, new=n_new, max_seq=S,
+        reduced=None if layers is None else dict(
+            n_layers=[full.n_layers, layers],
+            reason=f"bf16 weights of the whole model, "
+                   f"{2 * full.n_params() / 1e9:.1f} GB, fit neither the "
+                   "card's 80 GB nor the 108 GB host tier"),
         requests=3, init_s=init_s, request_s=secs, ms_per_step=wall_ms,
         tokens_per_s=[B * (P + n_new) / s for s in secs],
         peak_mem_bytes=peak, launches=launches, launches_expected=expect,
@@ -1459,7 +1705,7 @@ def phase_serve(arch: str, name: str) -> dict:
                      strategy=plan.strategy if plan else None,
                      iterations=rt.stats()["iteration"]),
         sample=outs[0][0, P:P + 16].tolist())
-    res["profile"] = prof = _profile(params, cfg, B, S, 8, min(wall_ms))
+    res["profile"] = prof = _profile(params, cfg, p1, S, 8, min(wall_ms))
     calls = prof["calls_per_step_by_group"]
     res["device_operations_per_step"] = prof["device_events_per_step"]
     # least time a decode step could take: the bytes of the weights it
@@ -1468,7 +1714,26 @@ def phase_serve(arch: str, name: str) -> dict:
     res["tiered_matmul_ms_per_step"] = prof["ms_per_step_by_group"].get(
         "tiered_matmul")
     res["tiered_matmul_bytes_bound_ms_per_step"] = None
-    if cfg.block_pattern == "attn":
+    if cfg.is_moe:
+        # the expert route reads each expert the step's B k rows pick once:
+        # its bound is the bytes of the experts the profiled steps picked
+        # (E (1 - (1 - k / E)^B) a layer if the router spread them evenly);
+        # the reference's dense buffer reads all E
+        E, k = cfg.moe_experts, cfg.moe_top_k
+        expert = 2 * sum(K * N for _, K, N in _moe_products(cfg))
+        routed = _routed_experts(params, cfg, p1, S, 8)
+        res["tiered_matmul_bytes_bound_ms_per_step"] = 2 * sum(
+            K * N for _, K, N in _moe_layer_products(cfg)) * cfg.n_layers \
+            / HBM_BW * 1e3
+        res["tiered_matmul_experts_ms_per_step"] = prof[
+            "ms_per_step_by_group"].get("tiered_matmul_experts")
+        res["experts_routed_per_layer"] = sum(routed) / len(routed)
+        res["experts_routed_per_layer_uniform"] = E * (1 - (1 - k / E) ** B)
+        res["tiered_matmul_experts_bytes_bound_ms_per_step"] = (
+            sum(routed) / 8 * expert / HBM_BW * 1e3)
+        res["dense_experts_bytes_ms_per_step"] = (
+            E * expert * cfg.n_layers / HBM_BW * 1e3)
+    elif cfg.block_pattern == "attn":
         res["tiered_matmul_bytes_bound_ms_per_step"] = 2 * sum(
             K * N for _, K, N in _layer_products(cfg)) * cfg.n_layers \
             / HBM_BW * 1e3
@@ -1483,7 +1748,10 @@ def phase_serve(arch: str, name: str) -> dict:
     emit(res)
     require(launches == expect, f"launch counts {launches} == {expect}")
     require(calls.get("tiered_matmul") == expect["tiered_matmul"] / steps
+            and calls.get("tiered_matmul_experts", 0)
+            == expect["tiered_matmul_experts"] / steps
             and not calls.get("tiered_matmul_ffma")
+            and not calls.get("tiered_matmul_experts_ffma")
             and not calls.get("splitk_sum"),
             "every product of a decode step is one tensor-core launch "
             f"({calls})")
@@ -1755,6 +2023,14 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
              pick("tiered_matmul", lambda dt, s: dt == "bfloat16"
                   and s["product"] in gemma),
              "one gemma-2b layer's 7 bf16 products at M=4, summed"),
+            ("tiered_matmul_experts",
+             [r for r in pick("tiered_matmul_experts", lambda dt, s:
+                              dt == "bfloat16" and str(s["product"])
+                              .startswith("moonshot-v1-16b-a3b:"))
+              if "ms" in r],
+             "one moonshot-v1-16b-a3b MoE layer's 3 routed bf16 products "
+             "at batch 4 (24 rows over 64 experts of 2048 x 1408 and 1408 "
+             "x 2048), summed; bound: the routed experts' weights"),
             ("flash_attention", pick("flash_attention", flash_train),
              flash_covers),
             ("flash_attention_bwd", pick("flash_attention_bwd", flash_train),
@@ -1774,6 +2050,12 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
         row["library_ms"] = None if None in libs else sum(libs)
         if row["library_ms"] is None:
             row["library"] = "none: no single PyTorch call computes it"
+        elif name == "tiered_matmul_experts":
+            row["library"] = rows[0]["library"]
+            row["note"] = ("a route of tiered_matmul; the reference "
+                           "computes the experts' products with jnp.einsum "
+                           "over its dense (B, E, C, d) buffer "
+                           "(src/repro/models/moe.py:114-117)")
         row["bound_by"] = rows[0]["bound_by"]
         if name == "decode_attention":
             row["launch_floor_ms"] = rows[0]["launch_floor_ms"]
@@ -1793,14 +2075,19 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
 def _arch_shapes(checks, name) -> list:
     """A kernel's times at yi-6b's and chatglm3-6b's shapes, bf16: decode
     at length 160 over the (4, 1024, K, 128) cache view, a layer's 7
-    products at M = 4 summed, the flash pair at the training shapes; and
-    at xlstm-350m's: its 5 decode products at M = 4 (bf16) summed, the SSD
+    products at M = 4 summed, the flash pair at the training shapes; at
+    xlstm-350m's: its 5 decode products at M = 4 (bf16) summed, the SSD
     pair at its training shape (fp32, decays near 1, v's rows padded as
-    the model pads them)."""
+    the model pads them); at moonshot-v1-16b-a3b's and dbrx-132b's: decode
+    (G 1 and 6), a layer's attention and shared-expert products and its 3
+    routed products (the expert route, batch 4) summed, and dbrx's flash
+    pair at G 6."""
     out = []
     for arch, flash in (("yi-6b", YI_FLASH_SHAPE),
                         ("chatglm3-6b", GLM_FLASH_SHAPE),
-                        ("xlstm-350m", None)):
+                        ("xlstm-350m", None),
+                        ("moonshot-v1-16b-a3b", None),
+                        ("dbrx-132b", DBRX_FLASH_SHAPE)):
         acfg = get_config(arch)
 
         def want(r):
@@ -1821,6 +2108,9 @@ def _arch_shapes(checks, name) -> list:
                             acfg.resolved_head_dim))
             if name == "tiered_matmul":
                 return str(s["product"]).startswith(arch + ":")
+            if name == "tiered_matmul_experts":
+                return str(s["product"]).startswith(arch + ":") \
+                    and "ms" in r
             if name.startswith("flash"):
                 return flash is not None and (
                     s["B"], s["K"], s["G"], s["S"], s["T"],
@@ -2102,7 +2392,8 @@ def main() -> int:
     phase_parity("zamba2-1.2b")
     for arch, heads in (("yi-6b", None), ("yi-6b", 8), ("chatglm3-6b", None),
                         ("chatglm3-6b", 16), ("xlstm-350m", None),
-                        ("xlstm-350m", 1)):
+                        ("xlstm-350m", 1), ("moonshot-v1-16b-a3b", None),
+                        ("dbrx-132b", None), ("dbrx-132b", 6)):
         phase_parity(arch, heads)
     phase_sim()
     paths = [phase_serve("gemma-2b", "serve"),
@@ -2118,7 +2409,11 @@ def main() -> int:
              phase_serve("xlstm-350m", "serve_xlstm"),
              # one profiled step: the sLSTM's loop is ~10^5 launches a step
              phase_train("xlstm-350m", 2048, "train_xlstm", lr=XLSTM_TRAIN_LR,
-                         rerun=True, profile_steps=1)]
+                         rerun=True, profile_steps=1),
+             phase_serve("moonshot-v1-16b-a3b", "serve_moonshot"),
+             phase_serve("dbrx-132b", "serve_dbrx", DBRX_SERVE_LAYERS),
+             phase_train("moonshot-v1-16b-a3b", 2048, "train_moonshot",
+                         MOE_TRAIN_LAYERS, MOE_TRAIN_LR, rerun=True)]
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)

@@ -63,6 +63,28 @@
 // each thread 8 adjacent columns of a weight row by 16-byte loads where
 // the row allows it, x staged in shared memory as fp32, and the same
 // cluster split-K merge.
+//
+// The expert route (`tiered_matmul_experts_launch`): y[r] = x[r] @
+// w[expert[r]] for a stack of E weights (E, K, N) and one expert index a
+// row, on the device.  It replaces no TPU kernel: the reference computes an
+// MoE layer's expert products with `jnp.einsum` over a dense (B, E, C, d)
+// dispatch buffer (src/repro/models/moe.py), which at decode (C = 8 slots
+// an expert, one token a row) reads every expert's weights each step.  It
+// is bound by the bytes of the experts the rows pick, and by nothing else:
+// a moonshot-v1-16b-a3b decode step at batch 4 picks ~21 of 64 experts a
+// layer (a third of the dense buffer's bytes).  The rows are grouped by
+// expert inside the kernel, with no host sync and no second launch: every
+// block counts the rows of each expert in shared memory (R <= a few
+// thousand, E <= kMaxExperts) and takes grid slot y as the y-th (expert,
+// tile of 8 rows) pair in expert order, the rows of each expert in
+// increasing order; a slot past the last pair exits at once.  The grid
+// has min(R, R / 8 + E) slots, enough for any grouping.  A block then runs
+// the kernel above on its expert: the weight tiles come through a 3-D
+// tensor map over (E, K, N) at the expert's coordinate (zeros past K and
+// N), x's rows are staged from the tile's row list and y is written to
+// it.  So each routed expert's weight tiles are read once a product (by
+// each of its 8-row tiles: twice for 9 to 16 rows), and no other expert's.
+// fp32 takes the FFMA kernel the same way, in tiles of 4 rows.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -79,6 +101,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxSplit = 8;            // blocks of a cluster (portable)
+constexpr int kMaxExperts = 1024;       // experts the expert route counts
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -103,13 +126,14 @@ __device__ __forceinline__ void cluster_sync_relaxed() {
 
 // The cluster's K split, merged: each block holds a rows x cols fp32
 // partial (row stride ld) at `part` in its shared memory; the outputs are
-// the sums over the blocks in rank order, written to y at (m0, n0), each
-// block taking every n_split-th share.  Called between the two barriers.
+// the sums over the blocks in rank order, partial row r written to row
+// row_of[r] of y from column n0 on, each block taking every n_split-th
+// share.  Called between the two barriers.
 template <typename T>
 __device__ __forceinline__ void merge_partials(const float* part, int ld,
                                                int rows, int cols, T* y,
-                                               long long ldy, int m0,
-                                               int n0) {
+                                               long long ldy,
+                                               const int* row_of, int n0) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -124,8 +148,59 @@ __device__ __forceinline__ void merge_partials(const float* part, int ld,
     float s = 0.f;
 #pragma unroll
     for (int p = 0; p < kMaxSplit; ++p) s += v[p];
-    from_f(s, y + (long long)(m0 + r) * ldy + n0 + c);
+    from_f(s, y + (long long)row_of[r] * ldy + n0 + c);
   }
+}
+
+// The rows of the expert route's grid slot `slot`: the slot-th (expert,
+// tile of tm rows) pair in expert order, each expert's rows in increasing
+// order, cut into tiles of tm.  Writes the tile's rows to rows[0 .. n) and
+// its expert to *e, and returns n; 0 when the slot lies past the last
+// pair (the block has no work).  Every thread of the block calls it; every
+// thread gets the same answer.  counts: kMaxExperts ints of shared memory,
+// sel: 2.  An expert index outside [0, E) traps (a launch failure).
+__device__ __forceinline__ int expert_tile(const int* expert, int R, int E,
+                                           int slot, int tm, int* counts,
+                                           int* sel, int* rows, int* e_out) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x) counts[e] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int e = __ldg(expert + r);
+    if (e < 0 || e >= E) __trap();
+    atomicAdd(&counts[e], 1);           // integer counts: any order
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sel[0] = -1;
+    for (int e = 0, start = 0; e < E; ++e) {
+      const int tiles = (counts[e] + tm - 1) / tm;
+      if (slot < start + tiles) {
+        sel[0] = e;
+        sel[1] = (slot - start) * tm;   // the tile's first rank
+        break;
+      }
+      start += tiles;
+    }
+  }
+  __syncthreads();
+  const int e = sel[0];
+  if (e < 0) return 0;
+  const int first = sel[1];
+  const int n = min(tm, counts[e] - first);
+  if (threadIdx.x < 32) {               // warp 0 ranks the expert's rows
+    const int lane = threadIdx.x;
+    for (int r0 = 0, seen = 0; r0 < R && seen < first + n; r0 += 32) {
+      const int r = r0 + lane;
+      const bool mine = r < R && __ldg(expert + r) == e;
+      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+      const int rank = seen + __popc(ballot & ((1u << lane) - 1u));
+      if (mine && rank >= first && rank < first + n) rows[rank - first] = r;
+      seen += __popc(ballot);
+    }
+  }
+  __syncthreads();
+  *e_out = e;
+  return n;
 }
 
 // ------------------------------------------------- tensor cores (bf16, TMA)
@@ -149,6 +224,7 @@ struct TcArgs {
   const __nv_bfloat16* x; __nv_bfloat16* y;
   int M, N, K, k_chunk;                 // k_chunk: rows of K a split, % kBK
   int x_vec;                            // x rows read 16 bytes at a time
+  const int* expert; int E;             // the expert route: M rows' experts
 };
 
 using hopper::mbar_wait_bounded;
@@ -178,16 +254,18 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Rows m0 .. m0 + 7 of x, columns k0 .. k0 + n - 1 (n a multiple of 64),
-// into xs (row stride kXLd), zero past M and K; by the consumer threads.
+// Rows rows[0 .. n_rows) of x, columns k0 .. k0 + n - 1 (n a multiple of
+// 64), into xs (row stride kXLd), zero past n_rows and K; by the consumer
+// threads.
 __device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const TcArgs& a,
-                                        int m0, int k0, int n) {
+                                        const int* rows, int n_rows, int k0,
+                                        int n) {
   const int chunks = n / 8;
   for (int i = threadIdx.x; i < kMRows * chunks; i += kConsumers * 32) {
     const int r = i / chunks, k = k0 + 8 * (i - r * chunks);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < a.M) {
-      const __nv_bfloat16* p = a.x + (long long)(m0 + r) * a.K + k;
+    if (r < n_rows) {
+      const __nv_bfloat16* p = a.x + (long long)rows[r] * a.K + k;
       if (a.x_vec && k + 8 <= a.K) {
         v = __ldg(reinterpret_cast<const uint4*>(p));
       } else {
@@ -204,11 +282,40 @@ __device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const TcArgs& a,
   }
 }
 
-// Grid (tiles of BN columns x n_split, ceil(M / 8)); clusters of the
-// n_split K-split blocks of one tile, along x.
-__global__ void __launch_bounds__(kTcThreads)
-tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
+// One weight box of the expert route: a 3-D tensor map over (E, K, N) at
+// element coordinates (n, k, e), under an L2 cache policy.
+__device__ __forceinline__ void tma_load_expert(void* dst, const void* tmap,
+                                                uint64_t* bar, int n, int k,
+                                                int e, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      :: "r"(hopper::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(tmap)),
+         "r"(hopper::smem_addr(bar)), "r"(n), "r"(k), "r"(e), "l"(policy)
+      : "memory");
+}
+
+// A block of the tensor-core kernels.  Grid (tiles of BN columns x n_split,
+// y); clusters of the n_split K-split blocks of one tile, along x.  Dense
+// (kExperts false): y = ceil(M / 8), block y takes rows 8 y .. 8 y + 7 of
+// the one weight (a 2-D tensor map).  Expert route: block y takes the rows
+// and the expert of grid slot y (`expert_tile`), or exits.
+template <bool kExperts>
+__device__ __forceinline__ void tc_block(const CUtensorMap* tm_w,
+                                         const TcArgs& a) {
   extern __shared__ uint8_t smem_raw[];
+  __shared__ int rows[kMRows];
+  int n_rows, ex = 0;
+  if constexpr (kExperts) {
+    __shared__ int counts[kMaxExperts], sel[2];
+    n_rows = expert_tile(a.expert, a.M, a.E, (int)blockIdx.y, kMRows,
+                         counts, sel, rows, &ex);
+    if (n_rows == 0) return;            // the whole cluster: one slot
+  } else {
+    const int m0 = (int)blockIdx.y * kMRows;
+    n_rows = min(kMRows, a.M - m0);
+    if (threadIdx.x < kMRows) rows[threadIdx.x] = m0 + threadIdx.x;
+  }
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __nv_bfloat16* xs =
@@ -220,7 +327,6 @@ tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
   const int n_split = (int)cg::this_cluster().num_blocks();
   const int split = (int)cg::this_cluster().block_rank();
   const int n0 = (int)blockIdx.x / n_split * kBN;
-  const int m0 = (int)blockIdx.y * kMRows;
   const int kt0 = split * (a.k_chunk / kBK);
   const int kt_total = (a.K + kBK - 1) / kBK;
   const int nt = min(a.k_chunk / kBK, kt_total - kt0);   // stages to run
@@ -234,7 +340,7 @@ tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
     hopper::mbar_fence_init();
   } else if (threadIdx.x == kConsumers * 32) {
     asm volatile("prefetch.tensormap [%0];\n"
-                 :: "l"(reinterpret_cast<uint64_t>(&tm_w)) : "memory");
+                 :: "l"(reinterpret_cast<uint64_t>(tm_w)) : "memory");
   }
   __syncthreads();
 
@@ -248,16 +354,22 @@ tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
         const int st = i % kStages;
         mbar_wait_bounded(&empty[st], ((i / kStages) & 1) ^ 1);
         hopper::mbar_expect_tx(&full[st], boxes * kBoxBytes);
-        for (int b = 0; b < boxes; ++b)
-          hopper::tma_load_2d(ring + st * kStageBytes + b * kBoxBytes,
-                              &tm_w, &full[st], n0 + 64 * b,
-                              (kt0 + i) * kBK, policy);
+        for (int b = 0; b < boxes; ++b) {
+          if constexpr (kExperts)
+            tma_load_expert(ring + st * kStageBytes + b * kBoxBytes, tm_w,
+                            &full[st], n0 + 64 * b, (kt0 + i) * kBK, ex,
+                            policy);
+          else
+            hopper::tma_load_2d(ring + st * kStageBytes + b * kBoxBytes,
+                                tm_w, &full[st], n0 + 64 * b,
+                                (kt0 + i) * kBK, policy);
+        }
       }
     }
   } else {
     // ---- consumers: warp w owns columns nw .. nw + 16 kBoxes - 1 of the
     // tile, kBoxes 16-column blocks; a lane holds y^T rows nw + 16 j + g
-    // and + 8, x rows m0 + 2 t and + 1 (g = lane / 4, t = lane % 4)
+    // and + 8, the block's x rows 2 t and + 1 (g = lane / 4, t = lane % 4)
     const int nw = warp * 16 * kBoxes;
     const bool active = n0 + nw < a.N;
     const int g = lane >> 2, t = lane & 3;
@@ -280,7 +392,7 @@ tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
     for (int w0 = 0; w0 < nt; w0 += kXWin / kBK) {
       const int wn = min(kXWin / kBK, nt - w0);
       if (w0 > 0) hopper::named_sync(1, kConsumers * 32);  // window used
-      stage_x(xs, a, m0, (kt0 + w0) * kBK, wn * kBK);
+      stage_x(xs, a, rows, n_rows, (kt0 + w0) * kBK, wn * kBK);
       hopper::named_sync(1, kConsumers * 32);
       for (int i = w0; i < w0 + wn; ++i) {
         const int st = i % kStages;
@@ -323,9 +435,20 @@ tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
   }
   __syncwarp();                         // the barriers below are .aligned
   cluster_sync_acq_rel();
-  merge_partials(part, kBN, min(kMRows, a.M - m0), min(kBN, a.N - n0), a.y,
-                 a.N, m0, n0);
+  merge_partials(part, kBN, n_rows, min(kBN, a.N - n0), a.y, a.N, rows,
+                 n0);
   cluster_sync_relaxed();
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
+  tc_block<false>(&tm_w, a);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+tiered_experts_mma_kernel(const __grid_constant__ CUtensorMap tm_w,
+                          TcArgs a) {
+  tc_block<true>(&tm_w, a);
 }
 
 // The tensor map of each weight, encoded at its first call: the map holds
@@ -334,28 +457,49 @@ tiered_mma_kernel(const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
 // the same shape gets the same map.  Calls from Python threads may run at
 // once (ctypes releases the GIL), so the cache is locked.
 struct MapKey {
-  const void* w; int N, K;
+  const void* w; int N, K, E;           // E = 0: one (K, N) weight
   bool operator==(const MapKey& o) const {
-    return w == o.w && N == o.N && K == o.K;
+    return w == o.w && N == o.N && K == o.K && E == o.E;
   }
 };
 struct MapHash {
   size_t operator()(const MapKey& k) const {
     return std::hash<const void*>()(k.w) ^ ((size_t)k.N << 32)
-           ^ ((size_t)k.K << 1);
+           ^ ((size_t)k.K << 1) ^ ((size_t)k.E << 48);
   }
 };
 
-int weight_map(const void* w, int N, int K, CUtensorMap* out) {
+// A stack of E row-major (K, N) bf16 weights as a 3-D tensor map (N, K, E)
+// with boxes of 64 columns x kBK rows x 1 expert, 128-byte swizzle, zeros
+// past N and K.  N must be a multiple of 8 and w 16-byte aligned.
+int experts_map(CUtensorMap* map, const void* w, int N, int K, int E) {
+  hopper::EncodeTiled fn = hopper::encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)K * N * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)kBK, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(w), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// E = 0: a (K, N) weight's 2-D map; E > 0: an (E, K, N) stack's 3-D map.
+int weight_map(const void* w, int N, int K, int E, CUtensorMap* out) {
   static std::mutex lock;
   static std::unordered_map<MapKey, CUtensorMap, MapHash> cache;
-  const MapKey key{w, N, K};
+  const MapKey key{w, N, K, E};
   std::lock_guard<std::mutex> guard(lock);
   auto it = cache.find(key);
   if (it == cache.end()) {
     if (cache.size() >= 4096) cache.clear();
     CUtensorMap map;
-    const int err = hopper::matrix_map(&map, w, N, K, kBK);
+    const int err = E == 0 ? hopper::matrix_map(&map, w, N, K, kBK)
+                           : experts_map(&map, w, N, K, E);
     if (err != 0) return err;
     it = cache.emplace(key, map).first;
   }
@@ -363,15 +507,17 @@ int weight_map(const void* w, int N, int K, CUtensorMap* out) {
   return 0;
 }
 
+// grid_y: ceil(M / 8) blocks of rows, or the expert route's slots.
+template <bool kExperts>
 int launch_tc(const TcArgs& a, const CUtensorMap& map, int n_split,
-              cudaStream_t stream) {
+              int grid_y, cudaStream_t stream) {
+  void (*kernel)(const CUtensorMap, TcArgs) =
+      kExperts ? tiered_experts_mma_kernel : tiered_mma_kernel;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      tiered_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.N + kBN - 1) / kBN * n_split,
-                     (a.M + kMRows - 1) / kMRows, 1);
+  cfg.gridDim = dim3((a.N + kBN - 1) / kBN * n_split, grid_y, 1);
   cfg.blockDim = dim3(kTcThreads, 1, 1);
   cfg.dynamicSmemBytes = kTcSmem;
   cfg.stream = stream;
@@ -382,7 +528,7 @@ int launch_tc(const TcArgs& a, const CUtensorMap& map, int n_split,
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, tiered_mma_kernel, map, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -428,21 +574,35 @@ __device__ __forceinline__ void load_row(const T* p, bool full, int left,
 struct FfmaArgs {
   const void* x; const void* w; void* y;
   int M, N, K, k_chunk, vec;
+  const int* expert; int E;             // the expert route: M rows' experts
 };
 
-// Grid (ceil(N / 256), ceil(M / 4), n_split); clusters of the n_split
-// K-split blocks of one tile, along z.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tiered_ffma_kernel(FfmaArgs a) {
+// A block of the FFMA kernels.  Grid (ceil(N / 256), y, n_split); clusters
+// of the n_split K-split blocks of one tile, along z.  Dense: y = ceil(M /
+// 4), block y takes rows 4 y .. 4 y + 3.  Expert route: block y takes the
+// rows and the expert of grid slot y (`expert_tile`, tiles of 4 rows), or
+// exits.
+template <typename T, bool kExperts>
+__device__ __forceinline__ void ffma_block(const FfmaArgs& a) {
+  __shared__ int row_of[kRows];
+  int rows, ex = 0;
+  if constexpr (kExperts) {
+    __shared__ int counts[kMaxExperts], sel[2];
+    rows = expert_tile(a.expert, a.M, a.E, (int)blockIdx.y, kRows, counts,
+                       sel, row_of, &ex);
+    if (rows == 0) return;              // the whole cluster: one slot
+  } else {
+    const int m0 = (int)blockIdx.y * kRows;
+    rows = min(kRows, a.M - m0);
+    if (threadIdx.x < kRows) row_of[threadIdx.x] = m0 + threadIdx.x;
+    __syncthreads();
+  }
   const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
   const int n0 = blockIdx.x * kCols + tx * kVec;
-  const int m0 = blockIdx.y * kRows;
   const int k_begin = blockIdx.z * a.k_chunk;
   const int k_end = min(a.K, k_begin + a.k_chunk);
   const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  const int rows = min(kRows, a.M - m0);
+  const T* w = static_cast<const T*>(a.w) + (long long)ex * a.K * a.N;
   const bool full = a.vec && (n0 + kVec <= a.N);
 
   __shared__ float xs[kRows][kStage];
@@ -458,7 +618,7 @@ tiered_ffma_kernel(FfmaArgs a) {
     for (int i = threadIdx.x; i < kRows * kStage; i += kThreads) {
       const int r = i / kStage, kk = i % kStage;
       xs[r][kk] = (r < rows && kk < kn)
-                      ? to_f(x[(long long)(m0 + r) * a.K + ks + kk]) : 0.f;
+                      ? to_f(x[(long long)row_of[r] * a.K + ks + kk]) : 0.f;
     }
     __syncthreads();
     // kUnroll weight rows in flight per thread, then their products; each
@@ -509,15 +669,28 @@ tiered_ffma_kernel(FfmaArgs a) {
   cluster_sync_acq_rel();
   const int c0 = (int)blockIdx.x * kCols;
   merge_partials(&red[0][0], kCols, rows, min(kCols, a.N - c0),
-                 static_cast<T*>(a.y), a.N, m0, c0);
+                 static_cast<T*>(a.y), a.N, row_of, c0);
   cluster_sync_relaxed();
 }
 
 template <typename T>
-int launch_ffma(const FfmaArgs& a, int n_split, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+tiered_ffma_kernel(FfmaArgs a) {
+  ffma_block<T, false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tiered_experts_ffma_kernel(FfmaArgs a) {
+  ffma_block<T, true>(a);
+}
+
+// grid_y: ceil(M / 4) blocks of rows, or the expert route's slots.
+template <typename T, bool kExperts>
+int launch_ffma(const FfmaArgs& a, int n_split, int grid_y,
+                cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.N + kCols - 1) / kCols, (a.M + kRows - 1) / kRows,
-                     n_split);
+  cfg.gridDim = dim3((a.N + kCols - 1) / kCols, grid_y, n_split);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.stream = stream;
   cudaLaunchAttribute at[1];
@@ -527,7 +700,9 @@ int launch_ffma(const FfmaArgs& a, int n_split, cudaStream_t stream) {
   at[0].val.clusterDim.z = n_split;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, tiered_ffma_kernel<T>, a);
+  void (*kernel)(FfmaArgs) = kExperts ? tiered_experts_ffma_kernel<T>
+                                      : tiered_ffma_kernel<T>;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -551,9 +726,11 @@ extern "C" int tiered_matmul_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
-    FfmaArgs a{x, w, y, M, N, K, k_chunk, vec};
-    if (dtype == 0) return launch_ffma<float>(a, n_split, s);
-    if (dtype == 1) return launch_ffma<__nv_bfloat16>(a, n_split, s);
+    FfmaArgs a{x, w, y, M, N, K, k_chunk, vec, nullptr, 0};
+    const int grid_y = (M + kRows - 1) / kRows;
+    if (dtype == 0) return launch_ffma<float, false>(a, n_split, grid_y, s);
+    if (dtype == 1)
+      return launch_ffma<__nv_bfloat16, false>(a, n_split, grid_y, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route != 1 || dtype != 1 || N % 8 != 0 || k_chunk % kBK != 0
@@ -561,9 +738,49 @@ extern "C" int tiered_matmul_launch(
       || (M + kMRows - 1) / kMRows > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  const int err = weight_map(w, N, K, &map);
+  const int err = weight_map(w, N, K, 0, &map);
   if (err != 0) return err;
   TcArgs a{static_cast<const __nv_bfloat16*>(x),
-           static_cast<__nv_bfloat16*>(y), M, N, K, k_chunk, vec};
-  return launch_tc(a, map, n_split, s);
+           static_cast<__nv_bfloat16*>(y), M, N, K, k_chunk, vec, nullptr, 0};
+  return launch_tc<false>(a, map, n_split, (M + kMRows - 1) / kMRows, s);
+}
+
+// The expert route: y[r] = x[r] @ w[expert[r]] for r < R.  x (R, K), w (E,
+// K, N) and y (R, N) row-major and contiguous, expert (R,) int32 on the
+// device, each in [0, E) (else the kernel traps); 1 <= E <= 1024.  route,
+// dtype, n_split, k_chunk and vec as for tiered_matmul_launch (route 1: N a
+// multiple of 8, w 16-byte aligned, which makes every expert's weight
+// 16-byte aligned).  The grid has min(R, R / tile + E) slots (tile: 8 rows
+// on route 1, 4 on route 0), one for each (expert, tile) pair the rows can
+// form.  Returns a CUDA error code (0 on success).
+extern "C" int tiered_matmul_experts_launch(
+    const void* x, const void* w, void* y, const void* expert, int R, int N,
+    int K, int E, int route, int n_split, int k_chunk, int vec, int dtype,
+    void* stream) {
+  if (R < 1 || N < 1 || K < 1 || E < 1 || E > kMaxExperts || k_chunk < 1
+      || n_split < 1 || n_split > kMaxSplit
+      || (long long)(n_split - 1) * k_chunk >= K
+      || (long long)n_split * k_chunk < K)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ex = static_cast<const int*>(expert);
+  const int tile = route == 1 ? kMRows : kRows;
+  const int slots = min(R, R / tile + E);
+  if (slots > 65535) return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    FfmaArgs a{x, w, y, R, N, K, k_chunk, vec, ex, E};
+    if (dtype == 0) return launch_ffma<float, true>(a, n_split, slots, s);
+    if (dtype == 1)
+      return launch_ffma<__nv_bfloat16, true>(a, n_split, slots, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != 1 || dtype != 1 || N % 8 != 0 || k_chunk % kBK != 0
+      || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int err = weight_map(w, N, K, E, &map);
+  if (err != 0) return err;
+  TcArgs a{static_cast<const __nv_bfloat16*>(x),
+           static_cast<__nv_bfloat16*>(y), R, N, K, k_chunk, vec, ex, E};
+  return launch_tc<true>(a, map, n_split, slots, s);
 }

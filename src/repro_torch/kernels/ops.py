@@ -17,12 +17,14 @@ from . import tiered_matmul as _mm
 
 decode_attention = _da.decode_attention
 tiered_matmul = _mm.tiered_matmul
+tiered_matmul_experts = _mm.tiered_matmul_experts
 flash_attention = _fa.flash_attention
 ssd_scan = _ssd.ssd_scan
 
 #: counter name -> (module, attribute holding its launches)
 _COUNTERS = {"decode_attention": (_da, "launches"),
              "tiered_matmul": (_mm, "launches"),
+             "tiered_matmul_experts": (_mm, "expert_launches"),
              "flash_attention": (_fa, "launches"),
              "flash_attention_bwd": (_fa, "bwd_launches"),
              "ssd_scan": (_ssd, "launches"),

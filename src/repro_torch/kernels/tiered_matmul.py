@@ -15,6 +15,12 @@ Two routes, by :func:`route`:
   describe.  FFMA, with the same in-cluster K merge.
 
 :func:`plan` sizes the grid to the card from its SM count.
+
+:func:`tiered_matmul_experts` is the expert route of the same kernels
+(MoE decode): row r of x times ``w[expert[r]]`` for a stack of E weights,
+the rows grouped by expert on the device inside the one launch, so that
+only the experts some row picks are read.  Its plain version is
+:func:`tiered_matmul_experts_plain`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from . import build, ref
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
+#: launches of its expert route since the last reset
+expert_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"ffma": 0, "mma": 1}
@@ -41,6 +49,8 @@ _SMEM_PER_SM, _SMEM_RESERVED = 233_472, 1024
 _LONG_SPLIT = 16
 # the "ffma" kernel's block tile
 _FFMA_COLS, _FFMA_ROWS = 256, 4
+# experts the expert route's kernels count in shared memory
+_MAX_EXPERTS = 1024
 
 #: plain version: both inputs cast to fp32, result in x's dtype
 tiered_matmul_plain = ref.tiered_matmul_ref
@@ -149,5 +159,92 @@ def _bind():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P] * 3 + [I] * 8 + [P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tiered_matmul_experts_plain(x: torch.Tensor, w: torch.Tensor,
+                                expert: torch.Tensor) -> torch.Tensor:
+    """Row r of x times ``w[expert[r]]``, both cast to fp32, in x's dtype:
+    each routed expert's rows as one product (the same sums as row by
+    row)."""
+    e = expert.long()
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    xf = x.float()
+    for i in torch.unique(e).tolist():
+        rows = (e == i).nonzero()[:, 0]
+        out[rows] = xf[rows] @ w[i].float()
+    return out.to(x.dtype)
+
+
+def tiered_matmul_experts(x: torch.Tensor, w: torch.Tensor,
+                          expert: torch.Tensor) -> torch.Tensor:
+    """x: (R, K); w: (E, K, N); expert: (R,) int32, each in [0, E) ->
+    (R, N) in x's dtype, row r = x[r] @ w[expert[r]] with an fp32
+    accumulator.  One launch a call, no host synchronisation: the kernel
+    groups the rows by expert itself and reads only the experts they pick
+    (an index outside [0, E) makes the kernel trap).  E <= 1024."""
+    global expert_launches
+    if (x.dim() != 2 or w.dim() != 3 or expert.dim() != 1
+            or x.shape[1] != w.shape[1] or expert.shape[0] != x.shape[0]):
+        raise ValueError(f"tiered_matmul_experts: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} and expert {tuple(expert.shape)}"
+                         " do not fit (R, K), (E, K, N), (R,)")
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
+        raise TypeError("tiered_matmul_experts: x and w must share one "
+                        f"dtype, float32 or bfloat16 (got {x.dtype}, "
+                        f"{w.dtype})")
+    if expert.dtype != torch.int32:
+        raise TypeError("tiered_matmul_experts: expert must be int32 (got "
+                        f"{expert.dtype})")
+    if not x.device == w.device == expert.device:
+        raise ValueError("tiered_matmul_experts: x, w and expert on "
+                         "different devices")
+    if x.device.type == "cpu":
+        return tiered_matmul_experts_plain(x, w, expert)
+    if not x.is_cuda:
+        raise ValueError(f"tiered_matmul_experts: unsupported device "
+                         f"{x.device}")
+    if not w.is_contiguous():
+        raise ValueError("tiered_matmul_experts: w must be contiguous "
+                         "(E, K, N)")
+    E, K, N = w.shape
+    if E > _MAX_EXPERTS:
+        raise ValueError(f"tiered_matmul_experts: {E} experts, at most "
+                         f"{_MAX_EXPERTS}")
+    x, expert = x.contiguous(), expert.contiguous()
+    R = x.shape[0]
+    r = route(x, w[0])      # every expert's weight aligned as the first
+    n_split, k_chunk = plan(_expert_rows(R, E, r), N, K, r,
+                            _sm_count(x.device.index))
+    if r == "mma":
+        vec = K % 8 == 0 and x.data_ptr() % 16 == 0
+    else:
+        vec = N % 8 == 0 and w.data_ptr() % 16 == 0
+    y = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    err = _bind_experts()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                          expert.data_ptr(), R, N, K, E, _ROUTES[r],
+                          n_split, k_chunk, int(vec), _DTYPES[x.dtype],
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tiered_matmul_experts kernel launch failed: "
+                           f"CUDA error {err}")
+    expert_launches += 1
+    return y
+
+
+def _expert_rows(R: int, E: int, route_: str) -> int:
+    """The rows :func:`plan` sizes the expert route's grid for: one tile
+    of the route's rows for each expert the R rows can pick (the experts
+    they do pick are known only on the device)."""
+    return (_M_ROWS if route_ == "mma" else _FFMA_ROWS) * min(R, E)
+
+
+def _bind_experts():
+    fn = build.load("tiered_matmul").tiered_matmul_experts_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 4 + [I] * 9 + [P]
         fn.restype = ctypes.c_int
     return fn

@@ -24,6 +24,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """In fp32 (biased variance, as ``jnp.var``), result in x's dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
+                        eps).to(x.dtype)
+
+
 # ---------------------------------------------------------- activations
 ACTIVATIONS: dict = {
     "silu": F.silu,
@@ -81,6 +88,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 # ------------------------------------------------------------------ init
+#: leaves of more elements than this are drawn slab by slab (below it, in
+#: one fp32 draw: every leaf of the dense, hybrid and xlstm configs, the
+#: largest chatglm3-6b's stacked w_gate of 1.57e9 elements)
+ONE_DRAW_MAX = 1 << 31
+#: elements of one slab's fp32 draw (1 GiB)
+SLAB_MAX = 1 << 28
+
+
+def _normal(generator: torch.Generator, shape: Tuple[int, ...], dtype,
+            std: float) -> torch.Tensor:
+    """N(0, std^2) in ``dtype``.  Up to ONE_DRAW_MAX elements: one fp32
+    draw, scaled and cast.  Above it the result is allocated in ``dtype``
+    and filled one slab of the leading axis at a time (recursively, until
+    a slab holds at most SLAB_MAX elements), each slab its own fp32 draw
+    from the same generator, so no more than ~1 GiB of fp32 is live: a
+    whole draw of moonshot's stacked expert w_gate (8.86e9 elements) would
+    be a 35 GB fp32 transient beside its 17.7 GB result."""
+    if math.prod(shape) <= ONE_DRAW_MAX:
+        return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=generator.device) * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    _fill_slabs(out, generator, std)
+    return out
+
+
+def _fill_slabs(out: torch.Tensor, generator: torch.Generator,
+                std: float) -> None:
+    if out.numel() <= SLAB_MAX:
+        out.copy_(torch.randn(out.shape, generator=generator,
+                              dtype=torch.float32,
+                              device=generator.device).mul_(std))
+        return
+    for slab in out:
+        _fill_slabs(slab, generator, std)
+
+
 def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
                dtype=torch.bfloat16, scale: Optional[float] = None
                ) -> torch.Tensor:
@@ -88,14 +131,12 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
     does not count towards fan_in."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * std).to(dtype)
+    return _normal(generator, shape, dtype, std)
 
 
 def embed_init(generator: torch.Generator, shape: Tuple[int, ...],
                dtype=torch.bfloat16, std: float = 0.02) -> torch.Tensor:
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * std).to(dtype)
+    return _normal(generator, shape, dtype, std)
 
 
 def tree_bytes(tree) -> int:

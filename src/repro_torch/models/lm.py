@@ -2,7 +2,9 @@
 head), for training and greedy decode.  Three block patterns are ported:
 
 * ``attn``              -- dense transformers (gemma-2b, yi-6b,
-                          chatglm3-6b);
+                          chatglm3-6b) and MoE transformers
+                          (moonshot-v1-16b-a3b, dbrx-132b: an MoE layer,
+                          :mod:`.moe`, in place of the MLP);
 * ``mamba_shared_attn`` -- zamba2: a Mamba-2 backbone with one *shared*
                           attention block (its own KV cache per
                           application) before every ``attn_every`` layers;
@@ -17,11 +19,13 @@ Functional API, as in the reference package's ``models/lm.py``:
   init_cache(cfg, batch, max_seq, device)      -> decode cache dict
   decode_step(params, cfg, cache, token, pos)  -> logits (cache in place)
 
-Parameters keep the reference's keys, shapes and stacked layer axis, so
-the runtime records the same leaf spans for them in both packages.  The
-reference scans over layers; here a Python loop walks per-layer views of
-the stacked tensors.  The MoE family and ``layer`` norm are queued in
-ROADMAP.md.
+Norms are ``rms`` or ``layer`` (dbrx-132b: scale and bias).  ``forward``
+sums the MoE layers' aux losses over the layers, and ``loss_fn`` returns
+nll + 0.01 aux.  Parameters keep the reference's keys, shapes and stacked
+layer axis, so the runtime records the same leaf spans for them in both
+packages.  The reference scans over layers; here a Python loop walks
+per-layer views of the stacked tensors.  The plain two-layer MLP
+(``mlp_type="mlp"``) and the frontends are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -33,32 +37,52 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import _tree
 from ..configs.base import ArchConfig
-from . import attention, mamba2, mlp as mlp_mod, xlstm
-from .common import (dense_init, embed_init, rms_norm, rope_at,
+from . import attention, mamba2, mlp as mlp_mod, moe as moe_mod, xlstm
+from .common import (dense_init, embed_init, layer_norm, rms_norm, rope_at,
                      rope_frequencies)
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     if (cfg.block_pattern not in ("attn", "mamba_shared_attn", "xlstm")
-            or cfg.is_moe or cfg.norm != "rms"):
+            or cfg.mlp_type not in ("swiglu", "geglu")
+            or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense 'attn', 'mamba_shared_attn' and "
-            "'xlstm' patterns with rms norm are ported (ROADMAP.md, queue 1: "
-            "'The moe family and the other five configs')")
+            f"{cfg.name}: the plain MLP (mlp_type='mlp') and the frontends "
+            "are not ported yet (ROADMAP.md, queue 1: 'The moe family and "
+            "the other five configs')")
+
+
+# ---------------------------------------------------------------- norms
+def _norm(blk: Dict[str, Any], name: str, x: torch.Tensor,
+          cfg: ArchConfig) -> torch.Tensor:
+    if cfg.norm == "layer":
+        return layer_norm(x, blk[f"{name}_scale"], blk[f"{name}_bias"])
+    return rms_norm(x, blk[f"{name}_scale"])
+
+
+def _init_norm(cfg: ArchConfig, name: str, n_layers, dtype, device
+               ) -> Dict[str, torch.Tensor]:
+    """rms: a scale of zeros (applied as 1 + scale); layer: a scale of ones
+    and a bias of zeros.  Stacked over ``n_layers`` unless it is None."""
+    shape = (cfg.d_model,) if n_layers is None else (n_layers, cfg.d_model)
+    if cfg.norm == "layer":
+        return {f"{name}_scale": torch.ones(shape, dtype=dtype, device=device),
+                f"{name}_bias": torch.zeros(shape, dtype=dtype,
+                                            device=device)}
+    return {f"{name}_scale": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _init_block(generator, cfg: ArchConfig, n_layers, dtype):
     """An attention block: stacked over ``n_layers``, or one unstacked
     block (``n_layers=None``, zamba2's shared block)."""
-    L = () if n_layers is None else (n_layers,)
     block: Dict[str, Any] = {
-        "attn": attention.init_attn_params(generator, cfg, n_layers, dtype),
-        "ln1_scale": torch.zeros((*L, cfg.d_model), dtype=dtype,
-                                 device=generator.device),
-        "ln2_scale": torch.zeros((*L, cfg.d_model), dtype=dtype,
-                                 device=generator.device),
-    }
-    if cfg.d_ff:
+        "attn": attention.init_attn_params(generator, cfg, n_layers, dtype)}
+    for name in ("ln1", "ln2"):
+        block.update(_init_norm(cfg, name, n_layers, dtype, generator.device))
+    if cfg.is_moe:
+        block["moe"] = moe_mod.init_moe_params(generator, cfg, n_layers,
+                                               dtype)
+    elif cfg.d_ff:
         block["mlp"] = mlp_mod.init_mlp_params(generator, cfg, n_layers,
                                                dtype)
     return block
@@ -73,15 +97,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     L, d = cfg.n_layers, cfg.d_model
     params: Dict[str, Any] = {
         "embed": embed_init(generator, (cfg.vocab_size, d), dtype),
-        "final_ln_scale": torch.zeros(d, dtype=dtype,
-                                      device=generator.device),
+        **_init_norm(cfg, "final_ln", None, dtype, generator.device),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (d, cfg.vocab_size), dtype)
 
     def with_ln1(blocks, n):
-        blocks["ln1_scale"] = torch.zeros((n, d), dtype=dtype,
-                                          device=generator.device)
+        blocks.update(_init_norm(cfg, "ln1", n, dtype, generator.device))
         return blocks
 
     if cfg.block_pattern == "attn":
@@ -183,24 +205,33 @@ def _unstack(tree, n: int) -> List[Any]:
 
 
 def _block_fwd(blk, x, cos, sin, cfg: ArchConfig) -> torch.Tensor:
-    h = rms_norm(x, blk["ln1_scale"])
+    h = _norm(blk, "ln1", x, cfg)
     x = x + attention.attn_forward(blk["attn"], h, cos, sin, cfg)
     if cfg.d_ff:
-        h = rms_norm(x, blk["ln2_scale"])
+        h = _norm(blk, "ln2", x, cfg)
         x = x + mlp_mod.mlp_forward(blk["mlp"], h, cfg)
     return x
 
 
+def _moe_block_fwd(blk, x, cos, sin, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An MoE layer's block: (output, the layer's aux loss)."""
+    h = _norm(blk, "ln1", x, cfg)
+    x = x + attention.attn_forward(blk["attn"], h, cos, sin, cfg)
+    out, aux = moe_mod.moe_forward(blk["moe"], _norm(blk, "ln2", x, cfg), cfg)
+    return x + out, aux
+
+
 def _mamba_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
-    return x + mamba2.mamba2_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
+    return x + mamba2.mamba2_forward(blk, _norm(blk, "ln1", x, cfg), cfg)
 
 
 def _mlstm_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
-    return x + xlstm.mlstm_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
+    return x + xlstm.mlstm_forward(blk, _norm(blk, "ln1", x, cfg), cfg)
 
 
 def _slstm_fwd(blk, x, cfg: ArchConfig) -> torch.Tensor:
-    return x + xlstm.slstm_forward(blk, rms_norm(x, blk["ln1_scale"]), cfg)
+    return x + xlstm.slstm_forward(blk, _norm(blk, "ln1", x, cfg), cfg)
 
 
 def _apply(fn, remat: bool, *args):
@@ -213,7 +244,8 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S).  Returns (logits (B, S, V) in the parameters' dtype,
-    aux loss = 0 for every ported pattern).  ``remat`` recomputes each
+    aux loss: the sum of the MoE layers' load-balancing losses, fp32, 0
+    without MoE).  ``remat`` recomputes each
     layer (and each application of zamba2's shared block) in the backward
     pass and keeps only its input, as the reference's
     ``jax.checkpoint(nothing_saveable)`` over the layer scan (and its
@@ -223,6 +255,7 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
         raise NotImplementedError("frontend embeddings are not ported (no "
                                   "ported config has a frontend)")
     x = params["embed"][tokens]                              # (B, S, d)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern == "xlstm":
         x = _xlstm_forward(params, cfg, x, remat)
     else:
@@ -232,13 +265,17 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
                                     rotary_dim=rd, device=x.device)
         if cfg.block_pattern == "attn":
             for blk in _unstack(params["blocks"], cfg.n_layers):
-                x = _apply(_block_fwd, remat, blk, x, cos, sin, cfg)
+                if cfg.is_moe:
+                    x, a = _apply(_moe_block_fwd, remat, blk, x, cos, sin,
+                                  cfg)
+                    aux = aux + a
+                else:
+                    x = _apply(_block_fwd, remat, blk, x, cos, sin, cfg)
         else:
             x = _hybrid_forward(params, cfg, x, cos, sin, remat)
-    x = rms_norm(x, params["final_ln_scale"])
+    x = _norm(params, "final_ln", x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return torch.matmul(x, head), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    return torch.matmul(x, head), aux
 
 
 def _hybrid_forward(params, cfg: ArchConfig, x, cos, sin, remat: bool):
@@ -286,10 +323,12 @@ def loss_fn(params: Dict[str, Any], cfg: ArchConfig,
 
 
 def _block_decode(blk, x, ck, cv, pos, cos, sin, cfg: ArchConfig):
-    h = rms_norm(x, blk["ln1_scale"])
+    h = _norm(blk, "ln1", x, cfg)
     x = x + attention.attn_decode(blk["attn"], h, ck, cv, pos, cos, sin, cfg)
-    if cfg.d_ff:
-        h = rms_norm(x, blk["ln2_scale"])
+    if cfg.is_moe:
+        x = x + moe_mod.moe_decode(blk["moe"], _norm(blk, "ln2", x, cfg), cfg)
+    elif cfg.d_ff:
+        h = _norm(blk, "ln2", x, cfg)
         x = x + mlp_mod.mlp_decode(blk["mlp"], h, cfg)
     return x
 
@@ -305,7 +344,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     x = params["embed"][token]                               # (B, d)
     if cfg.block_pattern == "xlstm":
         x = _xlstm_decode(params, cfg, cache, x)
-        x = rms_norm(x, params["final_ln_scale"])
+        x = _norm(params, "final_ln", x, cfg)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         return x @ head
     rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
@@ -316,7 +355,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
                               cos, sin, cfg)
     else:
         x = _hybrid_decode(params, cfg, cache, x, pos, cos, sin)
-    x = rms_norm(x, params["final_ln_scale"])
+    x = _norm(params, "final_ln", x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head
 
@@ -329,7 +368,7 @@ def _hybrid_decode(params, cfg: ArchConfig, cache, x, pos, cos, sin):
                           cache["v"][app], pos, cos, sin, cfg)
         for i in range(g, min(g + cfg.attn_every, cfg.n_layers)):
             blk = blocks[i]
-            h = rms_norm(x, blk["ln1_scale"])
+            h = _norm(blk, "ln1", x, cfg)
             x = x + mamba2.mamba2_decode(blk, h, {"ssm": ssm[i],
                                                   "conv": conv[i]}, cfg)
     return x
@@ -342,11 +381,11 @@ def _xlstm_decode(params, cfg: ArchConfig, cache, x):
             if kind == "m":
                 blk = mblocks[i]
                 x = x + xlstm.mlstm_decode(
-                    blk, rms_norm(x, blk["ln1_scale"]),
+                    blk, _norm(blk, "ln1", x, cfg),
                     {"state": cache["mlstm"]["state"][i]}, cfg)
             else:
                 blk = sblocks[i]
                 x = x + xlstm.slstm_decode(
-                    blk, rms_norm(x, blk["ln1_scale"]),
+                    blk, _norm(blk, "ln1", x, cfg),
                     {k: t[i] for k, t in cache["slstm"].items()}, cfg)
     return x

@@ -1,7 +1,9 @@
 """Reduced model configs on which the port's serving and training tests
 hold it against the reference: gemma-2b, and yi-6b and chatglm3-6b both as
 ``reduced()`` makes them (one KV head, G = 4) and at their real G (8 and 16
-query heads over one KV head of the reduced width)."""
+query heads over one KV head of the reduced width); the MoE family:
+moonshot-v1-16b-a3b (4 experts, top-2, one shared expert) and dbrx-132b
+(``layer`` norm, no shared expert) reduced, and dbrx at its real G 6."""
 
 import dataclasses
 
@@ -14,7 +16,9 @@ from repro.configs import get_config
 MODEL_CASES = {"gemma-2b": ("gemma-2b", None), "yi-6b": ("yi-6b", None),
                "yi-6b-g8": ("yi-6b", 8),
                "chatglm3-6b": ("chatglm3-6b", None),
-               "chatglm3-6b-g16": ("chatglm3-6b", 16)}
+               "chatglm3-6b-g16": ("chatglm3-6b", 16),
+               "moonshot": ("moonshot-v1-16b-a3b", None),
+               "dbrx": ("dbrx-132b", None), "dbrx-g6": ("dbrx-132b", 6)}
 
 
 def reduced_case(case: str):

@@ -43,7 +43,11 @@ def _randn(shape, dtype, seed, scale=1.0):
     # yi-6b's (G 8) and chatglm3-6b's (G 16) serving caches, D 128
     (4, 4, 8, 128, 1024, 1, True), (4, 4, 8, 128, 1024, 160, True),
     (4, 4, 8, 128, 1024, 1024, True), (4, 2, 16, 128, 1024, 1, True),
-    (4, 2, 16, 128, 1024, 160, True), (4, 2, 16, 128, 1024, 1024, True)])
+    (4, 2, 16, 128, 1024, 160, True), (4, 2, 16, 128, 1024, 1024, True),
+    # dbrx-132b's G 6 (a block of 8 heads, 2 masked) and moonshot-v1-16b-
+    # a3b's G 1 over 16 KV heads, D 128
+    (4, 8, 6, 128, 1024, 1, True), (4, 8, 6, 128, 1024, 160, True),
+    (4, 8, 6, 128, 1024, 1024, True), (4, 16, 1, 128, 1024, 160, True)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, B, K, G, D, T,
                                                length, view):
     da = importlib.import_module("repro_torch.kernels.decode_attention")
@@ -166,6 +170,108 @@ def test_tiered_matmul_kernel_ignores_stale_shared_memory(cuda, M, K, N):
                                atol=TOL[torch.bfloat16])
 
 
+# the expert route: (R, E, K, N, experts): moonshot-v1-16b-a3b's and
+# dbrx-132b's decode at batch 4 (each token's k distinct experts, drawn);
+# every row on one expert (more than 8: tiles of 8 rows, of 4 on the FFMA
+# kernel); R no multiple of 8 with experts no row picks; K and N
+# multiples of no tile; N no multiple of 8; an expert's rows across two
+# warp-wide chunks of 32
+EXPERT_CASES = [
+    (24, 64, 2048, 1408, "decode6"), (24, 64, 1408, 2048, "decode6"),
+    (16, 16, 6144, 10752, "decode4"), (16, 16, 10752, 6144, "decode4"),
+    (20, 16, 2048, 1408, [5] * 20), (9, 4, 1408, 2048, [3] * 9),
+    (13, 8, 2048, 1408, [i % 7 for i in range(13)]),
+    (13, 8, 100, 264, [6 - i % 5 for i in range(13)]),
+    (5, 3, 1000, 13, [2, 0, 2, 2, 0]),
+    (40, 2, 256, 264, [i % 2 for i in range(40)])]
+
+
+def _experts(R, E, spec, seed):
+    if isinstance(spec, list):
+        return torch.tensor(spec, dtype=torch.int32, device="cuda")
+    k = int(spec[len("decode"):])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scores = torch.rand((R // k, E), generator=g, device="cuda")
+    return scores.topk(k, dim=-1).indices.reshape(-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,E,K,N,spec", EXPERT_CASES)
+def test_tiered_matmul_experts_kernel_matches_plain(cuda, dtype, R, E, K, N,
+                                                    spec):
+    """One launch, the same bits on a second call, and the plain version's
+    numbers within the kernel tolerance."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x = _randn((R, K), dtype, 12, 0.1)
+    w = _randn((E, K, N), dtype, 13, 0.1)
+    expert = _experts(R, E, spec, 14)
+    before = mm.expert_launches
+    out = mm.tiered_matmul_experts(x, w, expert)
+    again = mm.tiered_matmul_experts(x, w, expert)
+    torch.cuda.synchronize()
+    assert mm.expert_launches == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(
+        out.float(), mm.tiered_matmul_experts_plain(x, w, expert).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_tiered_matmul_experts_reads_no_unpicked_expert(cuda):
+    """Experts no row picks may hold anything: NaN there changes nothing."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x = _randn((13, 2048), torch.bfloat16, 15, 0.1)
+    w = _randn((8, 2048, 1408), torch.bfloat16, 16, 0.1)
+    expert = torch.tensor([i % 6 for i in range(13)], dtype=torch.int32,
+                          device="cuda")
+    want = mm.tiered_matmul_experts(x, w, expert)
+    w[6:] = float("nan")
+    got = mm.tiered_matmul_experts(x, w, expert)
+    assert torch.equal(got, want)
+
+
+def test_tiered_matmul_experts_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda):
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x = _randn((4, 64), torch.bfloat16, 17)
+    w = _randn((3, 64, 64), torch.bfloat16, 18)
+    ex = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        mm.tiered_matmul_experts(x, w, ex.long())
+    with pytest.raises(ValueError):
+        mm.tiered_matmul_experts(x, w, ex.cpu())
+    with pytest.raises(ValueError):
+        mm.tiered_matmul_experts(x, w.transpose(1, 2), ex)
+    with pytest.raises(ValueError):
+        mm.tiered_matmul_experts(x, _randn((1025, 64, 8), torch.bfloat16, 19),
+                                 ex)
+
+
+@pytest.mark.parametrize("arch,heads", [("moonshot-v1-16b-a3b", None),
+                                        ("dbrx-132b", None), ("dbrx-132b", 6)])
+def test_reduced_moe_serves_the_same_tokens_on_card_and_cpu(cuda, arch,
+                                                            heads):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(arch).reduced()
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=1)
+    cpu, gpu = (lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=d, dtype=torch.float32)
+                for d in ("cpu", "cuda"))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(1))
+    outs = []
+    for d, p in (("cpu", cpu), ("cuda", gpu)):
+        ops.reset_launch_counts()
+        outs.append(ServeEngine(cfg, p, max_seq=32, batch=2, device=d)
+                    .generate(prompts, 5).cpu())
+    assert ops.launch_counts()["tiered_matmul_experts"] == 3 * 2 * 11
+    assert torch.equal(outs[0], outs[1])
+
+
 def _objects(core, sizes):
     objs, golden = {}, {}
     g = torch.Generator().manual_seed(0)
@@ -264,11 +370,15 @@ FLASH_CASES = [
     # yi-6b's G 8 and chatglm3-6b's G 16 at D 128, S and T multiples of no
     # tile, causal and not
     (1, 4, 8, 300, 300, 128, True), (1, 2, 16, 300, 300, 128, True),
-    (1, 2, 16, 256, 384, 128, False)]
+    (1, 2, 16, 256, 384, 128, False),
+    # dbrx-132b's G 6 at D 128
+    (1, 2, 6, 300, 300, 128, True), (1, 2, 6, 256, 384, 128, False),
+    (2, 8, 6, 256, 256, 128, True)]
 # q x 8: peaked scores, the running max moves between key tiles; bf16
 # only (chip_smoke.PEAKED_DTYPES says why)
 FLASH_PEAKED = [(1, 1, 8, 300, 300, 256, True), (1, 32, 1, 512, 512, 64, True),
-                (1, 2, 16, 300, 300, 128, True)]
+                (1, 2, 16, 300, 300, 128, True),
+                (1, 2, 6, 300, 300, 128, True)]
 
 
 @pytest.mark.parametrize(

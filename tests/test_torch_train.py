@@ -360,7 +360,8 @@ def test_forward_loss_and_every_gradient_match_reference(gemma, gemma_ref,
     tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)}
     tlogits, aux = port_lm.forward(tp, cfg, tb["tokens"], remat=remat)
     np.testing.assert_allclose(as_np(tlogits), as_np(jlogits), **MODEL_TOL)
-    assert float(aux) == 0.0
+    # the MoE layers' summed load-balancing loss; 0 without MoE
+    assert float(aux) == pytest.approx(float(jm["aux"]), rel=1e-5, abs=0)
 
     leaves, treedef = _tree.flatten(tp)
     live = [t.clone().requires_grad_() for t in leaves]
@@ -379,13 +380,24 @@ def test_forward_loss_and_every_gradient_match_reference(gemma, gemma_ref,
 
 
 def test_lm_refuses_other_patterns():
-    """What is still unported: the MoE family and ``layer`` norm."""
+    """What is still unported: the plain two-layer MLP and the vision and
+    audio frontends (musicgen-large, nemotron-4-340b, phi-3-vision-4.2b)."""
     cfg = get_config("gemma-2b").reduced()
     import dataclasses
-    for other in (dataclasses.replace(cfg, moe_experts=4, moe_top_k=2),
-                  dataclasses.replace(cfg, norm="layer")):
+    for other in (dataclasses.replace(cfg, mlp_type="mlp"),
+                  dataclasses.replace(cfg, frontend="vision",
+                                      frontend_tokens=4),
+                  dataclasses.replace(cfg, frontend="audio",
+                                      frontend_tokens=4)):
         with pytest.raises(NotImplementedError, match="moe family"):
             port_lm.forward({}, other, torch.zeros((1, 4), dtype=torch.long))
+        with pytest.raises(NotImplementedError, match="moe family"):
+            port_lm.init_params(other, torch.Generator().manual_seed(0),
+                                device="cpu")
+    for arch in ("musicgen-large", "nemotron-4-340b", "phi-3-vision-4.2b"):
+        with pytest.raises(NotImplementedError, match="moe family"):
+            port_lm.init_cache(get_config(arch).reduced(), 1, 8,
+                               device="cpu")
 
 
 # ------------------------------------------------------------------- AdamW
