@@ -11,15 +11,17 @@ checks can see these faults only if every mutant fails at least one of
 them (or crashes); the script exits non-zero otherwise.  Names on the
 command line run those mutants only.  The mutants:
 
-- bf16 flash-attention forward (the flash checks, bar the training shape):
+- bf16 flash-attention forward (the flash checks, bar the training shape;
+  phi-3-vision-4.2b's D 96 and nemotron-4-340b's G 12, D 192 among them):
   ``corr_dropped`` (the online softmax never rescales),
   ``last_partial_tile_skipped`` (a key tile that ends past k_end is not
   loaded), ``diagonal_mask_dropped`` (keys past a row's position are not
   masked), ``group_split_fixed_8`` (a stacked row's position is taken as
   row / 8 where row / G belongs: right up to G 8, so only the G 16 checks
   see it);
-- decode attention (the decode checks at the serving shapes, G = 16,
-  peaked scores and behind a NaN fill of shared memory): ``merge_weight_dropped`` (the splits' partials are
+- decode attention (the decode checks at the serving shapes, phi-3-
+  vision-4.2b's D 96 and nemotron-4-340b's G 12, D 192 among them, G =
+  16, peaked scores and behind a NaN fill of shared memory): ``merge_weight_dropped`` (the splits' partials are
   summed without exp(m_split - m)), ``newest_row_dropped`` (row
   ``length - 1`` is never read), ``split_partial_step_skipped`` (a split's
   last partial step, the rows past its last whole step of R rows, is not
@@ -191,7 +193,10 @@ for c in [(1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
           (1, 32, 1, 512, 512, 64, True, 8.0),
           (1, 2, 4, 128, 300, 128, False, 8.0),
           (1, 2, 16, 300, 300, 128, True),
-          (1, 2, 16, 300, 300, 128, True, 8.0)]:
+          (1, 2, 16, 300, 300, 128, True, 8.0),
+          (1, 4, 1, 300, 300, 96, True), (1, 2, 12, 300, 300, 192, True),
+          (1, 4, 1, 300, 300, 96, True, 8.0),
+          (1, 2, 12, 300, 300, 192, True, 8.0)]:
     fwd, _ = cs._flash_case(timer, torch.bfloat16, *c[:7], gen, *c[7:])
     print(json.dumps(dict(case=c, ok=fwd["ok"], err=fwd["max_abs_err"],
                           lse_err=fwd["lse_max_abs_err"])), flush=True)
@@ -208,6 +213,9 @@ for dt in (torch.float32, torch.bfloat16):
     cases += [(dt, 4, 32, 1, 64, 1024, n, True) for n in (1, 160, 1024)]
     cases += [(dt, 2, 2, 16, 128, 1024, n, True) for n in (1, 33, 161, 1024)]
     cases += [(dt, 4, K, G, 128, 1024, n, True) for K, G in ((4, 8), (2, 16))
+              for n in (1, 160, 1024)]
+    cases += [(dt, 4, K, G, D, 1024, n, True)
+              for K, G, D in ((32, 1, 96), (8, 12, 192))
               for n in (1, 160, 1024)]
 for c in cases:
     r = cs._decode_case(None, *c, gen)
@@ -229,7 +237,8 @@ for r in cs._stale_shared_cases(gen):
 gemma, zamba = cs._path_products()
 shapes = [(256, 512, 256), (300, 700, 500), (128, 128, 128)]
 shapes += [(4, K, N) for _, K, N in gemma + zamba]
-shapes += [(4, K, N) for arch in ("yi-6b", "chatglm3-6b")
+shapes += [(4, K, N) for arch in ("yi-6b", "chatglm3-6b", "musicgen-large",
+                                  "phi-3-vision-4.2b")
            for _, K, N in cs._layer_products(cs.get_config(arch))]
 rows = [cs._matmul_case(None, dt, M, K, N, gen)
         for dt in (torch.float32, torch.bfloat16) for M, K, N in shapes]

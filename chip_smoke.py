@@ -6,6 +6,7 @@
   python3 chip_smoke.py --compare-matmul DIR
   python3 chip_smoke.py --slstm-autograd
   python3 chip_smoke.py --trace-drops
+  python3 chip_smoke.py --lr-sweep ARCH LAYERS LR [LR ...]
 
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails:
@@ -28,7 +29,12 @@ result line) if any phase fails:
                attention and shared-expert products, and tiered_matmul's
                expert route at both models' decode shapes and edge
                cases: every row on one expert, experts no row picks),
-               with kernel / plain /
+               musicgen-large, phi-3-vision-4.2b and nemotron-4-340b
+               (decode at D 96 and at G 12, D 192; the flash pair at D
+               96, also over 2048 + 144 patch positions, and at G 12, D
+               192; each layer's products, the plain MLP's two among them,
+               nemotron's 2.7 GB w_up and w_down with the far end of the
+               weight checked), with kernel / plain /
                bound / library times and the launch floor (an empty
                kernel); the flash-attention and SSD-scan backward kernels
                against autograd through the plain forward, the SSD one's
@@ -43,11 +49,15 @@ result line) if any phase fails:
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
 5. parity   -- reduced gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b,
-               xlstm-350m, moonshot-v1-16b-a3b and dbrx-132b, fp32 weights,
-               the card against the CPU; yi-6b, chatglm3-6b and dbrx-132b
-               also at their real G (8, 16 and 6 query heads over one KV
-               head), xlstm-350m also at one head (N 128, P 129: the SSD
-               forward's wide route);
+               xlstm-350m, moonshot-v1-16b-a3b, dbrx-132b, musicgen-large,
+               phi-3-vision-4.2b and nemotron-4-340b, fp32 weights, the
+               card against the CPU; yi-6b, chatglm3-6b, dbrx-132b and
+               nemotron also at their real G (8, 16, 6 and 12 query heads
+               over one KV head), phi-3-vision and nemotron (at G 12) also
+               at their real head widths (D 96 and 192), xlstm-350m also at
+               one head (N 128, P 129: the SSD forward's wide route); the
+               two frontend configs also through ``forward`` with their
+               frontend embeddings;
 6. sim      -- the discrete-event simulator on the card's host: the
                quickstart's CG workload DRAM-only, NVM-only and under
                Unimem, twice (same plan digest and iteration times), and
@@ -57,30 +67,46 @@ result line) if any phase fails:
 8. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
                tokens, AdamW, per-layer remat) through ``train/loop.py``
                under the runtime, with every kernel launch counted;
-9. serve_zamba2 -- full-width zamba2-1.2b (38 Mamba-2 layers, a shared
-               attention block every 6, d_model 2048) served the same way;
-10. train_zamba2 -- full-width zamba2-1.2b trained for 5 steps of batch
-               2 x 4096 tokens (16 chunks of the SSD scan a sequence);
-11. serve_yi, serve_chatglm3 -- full-width, full-depth yi-6b (32 layers,
-               d_model 4096, 32 heads over 4 KV heads of 128, SwiGLU 11008)
-               and chatglm3-6b (28 layers, 32 heads over 2 KV heads, qkv
-               bias, half-dim rotary, SwiGLU 13696) served as gemma-2b is;
+9. serve_zamba2 -- full-width zamba2-1.2b (a shared attention block
+               every 6 Mamba-2 layers, d_model 2048), cut to 12 of its 38
+               layers (EARLIER_SERVE_LAYERS: the run's time limit), served
+               the same way;
+10. train_zamba2 -- full-width, full-depth zamba2-1.2b trained for 5
+               steps of batch 2 x 4096 tokens (16 chunks of the SSD scan a
+               sequence);
+11. serve_yi, serve_chatglm3 -- full-width yi-6b (d_model 4096, 32 heads
+               over 4 KV heads of 128, SwiGLU 11008) and chatglm3-6b (32
+               heads over 2 KV heads, qkv bias, half-dim rotary, SwiGLU
+               13696), cut to 8 layers (the time limit), served as
+               gemma-2b is;
 12. train_yi, train_chatglm3 -- the same at full width, cut to 8 layers
                (the whole model's training state does not fit 80 GB),
                trained as gemma-2b is;
-13. serve_xlstm, train_xlstm -- full-width, full-depth xlstm-350m (24
-               layers: 21 mLSTM with a 512 x 513 state a head, 3 sLSTM;
-               d_model 1024) served as gemma-2b is, and trained for 5 steps
-               of batch 2 x 2048 twice (the same losses, bit for bit);
-14. serve_moonshot, serve_dbrx, train_moonshot -- full-width,
-               full-depth moonshot-v1-16b-a3b (48 layers of 64 experts,
-               top-6, 2 shared) and dbrx-132b cut to 8 of its 40 layers (16
+13. serve_xlstm, train_xlstm -- full-width xlstm-350m (mLSTM layers
+               with a 512 x 513 state a head, an sLSTM layer in every 8;
+               d_model 1024) cut to 8 of its 24 layers (7 mLSTM, 1 sLSTM;
+               the time limit: the sLSTM's loop is host-bound) served as
+               gemma-2b is, and trained for 5 steps of batch 2 x 2048 twice
+               (the same losses, bit for bit);
+14. serve_moonshot, serve_dbrx, train_moonshot -- full-width
+               moonshot-v1-16b-a3b (layers of 64 experts, top-6, 2
+               shared) cut to 12 of its 48 layers (the time limit) and
+               dbrx-132b cut to 8 of its 40 layers (16
                experts, top-4, layer norm, G 6: 263 GB of weights fit no
                tier) served as gemma-2b is, each routed product one launch
                of the expert route; moonshot cut to 4 layers trained for 5
                steps of batch 2 x 2048 twice (the same losses, bit for bit:
                the dispatch is deterministic);
-15. kernels -- one line with each kernel's numbers.
+15. serve_musicgen, train_musicgen, serve_phi3v, train_phi3v,
+               serve_nemotron -- full-width, full-depth musicgen-large (48
+               layers, the plain gelu MLP, layer norm) and phi-3-vision-
+               4.2b (32 layers, D 96) served as gemma-2b is and trained for
+               5 steps of batch 2 x 2048, each train phase with a frontend
+               step (64 audio frames, 144 patch embeddings before the
+               tokens, at full width); nemotron-4-340b (G 12, D 192, the
+               plain squared-ReLU MLP of 73728) cut to 6 of its 96 layers
+               (682 GB of weights fit no tier) served as gemma-2b is;
+16. kernels -- one line with each kernel's numbers.
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
@@ -93,7 +119,9 @@ checkout's tiered_matmul and through that of the checkout at DIR (see
 ``compare_matmul``); ``--slstm-autograd`` only times one sLSTM layer's
 forward and backward with and without its written-out gradient (see
 ``slstm_autograd``); ``--trace-drops`` only counts the kernels that
-torch.profiler's trace loses at a session's head (see ``trace_drops``).
+torch.profiler's trace loses at a session's head (see ``trace_drops``);
+``--lr-sweep`` only trains a config 5 steps at each rate given (see
+``lr_sweep``).
 Times are CUDA-event times over many queued launches (median), each
 behind a device-side sleep so that no host delay falls inside a timed
 pair, with the L2 cache flushed before each launch, since the serving and
@@ -193,6 +221,17 @@ ZAMBA_DECODE_TOL = 1e-3
 # identical, its 600-position forward 1.2e-5); with the KV cache in fp32
 # on both sides they are held to PARITY_TOL
 MOE_DECODE_TOL = 1e-3
+# The same holds for musicgen-large, phi-3-vision-4.2b and nemotron-4-340b
+# (reduced: 4 KV heads, or D 96 and 192, where more cached values can
+# straddle a boundary): on an H100 their card decode lay 1.9e-4 to 1.5e-3
+# from the CPU's with the bf16 KV cache, their 600-position forward at most
+# 2.1e-5.  Their decode is held to PARITY_TOL with an fp32 KV cache on both
+# sides, and with the bf16 cache to the distance that rounding the cache
+# to bf16 moves the CPU's own logits (bf16 against fp32 cache, the same
+# steps): an ulp apart in a few cached values moves them less than
+# rounding every one of them does
+KV_ROUNDING_ARCHS = ("musicgen-large", "phi-3-vision-4.2b",
+                     "nemotron-4-340b")
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
@@ -230,8 +269,21 @@ GLM_FLASH_SHAPE = (2, 2, 16, 2048, 2048, 128)
 # dbrx-132b's attention at batch 2 x 2048: 48 heads over 8 KV heads (G 6),
 # D 128
 DBRX_FLASH_SHAPE = (2, 8, 6, 2048, 2048, 128)
+# musicgen-large's training step (batch 2 x 2048): 32 heads over 32 KV
+# heads of 64 (G 1); phi-3-vision-4.2b's: 32 heads of 96 (G 1), which run
+# in the D 128 instantiation with a quarter of each tile's columns past D,
+# at 2048 tokens and at 2048 + 144 patch positions (its frontend step: the
+# last key tile ragged); nemotron-4-340b's attention at batch 1 x 2048: 96
+# heads over 8 KV heads (G 12) of 192, the D 256 instantiation with its
+# last 64-wide box wholly past D (on no path: nemotron has no train path)
+MUSICGEN_FLASH_SHAPE = (2, 32, 1, 2048, 2048, 64)
+PHI3V_FLASH_SHAPE = (2, 32, 1, 2048, 2048, 96)
+PHI3V_FRONT_FLASH_SHAPE = (2, 32, 1, 2192, 2192, 96)
+NEMOTRON_FLASH_SHAPE = (1, 8, 12, 2048, 2048, 192)
 TIMED_FLASH_SHAPES = (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE,
-                      GLM_FLASH_SHAPE, DBRX_FLASH_SHAPE)
+                      GLM_FLASH_SHAPE, DBRX_FLASH_SHAPE, MUSICGEN_FLASH_SHAPE,
+                      PHI3V_FLASH_SHAPE, PHI3V_FRONT_FLASH_SHAPE,
+                      NEMOTRON_FLASH_SHAPE)
 # the train paths of the 6-billion-parameter configs keep this many layers
 # and train at this rate: Adam's first steps move every weight by about lr,
 # so a layer's output by about fan-in x lr, and at d_model 4096 the losses
@@ -246,6 +298,11 @@ SSD_TRAIN_SHAPE = (2, 64, 4096, 64, 64, 256)   # B, H, S, N, P, chunk
 # drifted to 10.93 at 1e-3 and fell to 10.17 at 2e-3 (H100, a sweep of
 # this phase's runs; the same bits in every run)
 XLSTM_TRAIN_LR = 2e-3
+# ... and at 8 of its 24 layers (7 mLSTM, 1 sLSTM), for the run's time
+# limit: the step is host-bound by the sLSTM's Python loop over 2048
+# positions (6-10 s a step at 24 layers on a slow host, 276 s for the
+# phase); at 8 layers the losses still fall at 2e-3 (11.02 to 10.01, H100)
+XLSTM_TRAIN_LAYERS = 8
 # xlstm-350m's mLSTM training step (batch 2 x 2048): 4 heads, N = d_in / H =
 # 512, P = 513 (the head width and the normalizer's ones column), chunks of
 # 256; k and q per head.  The SSD kernels' wide route
@@ -264,6 +321,32 @@ DBRX_SERVE_LAYERS = 8
 # its losses fell over the 5 steps from a random init (H100)
 MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_LR = 3e-4
+# nemotron-4-340b serves 6 of its 96 layers: its 682 GB of bf16 weights fit
+# no tier; a layer is 6.91 GB and the untied embedding and head 18.9 GB, so
+# 6 layers come to 60.3 GB, which leaves room for the init's 8.2 GB fp32
+# draw of the stacked wq and wo (6 x 18432 x 18432)
+NEMOTRON_SERVE_LAYERS = 6
+# The earlier serve paths run cut in depth so that the whole run stays
+# well inside its time limit: each decode step is host-bound (idle
+# 0.75-0.92, ~26-70 launches a layer at ~10-26 us of host time each), so a
+# path's time grows with its layers, and every layer runs the same kernels
+# at the same shapes.  zamba2 keeps 2 applications of its shared block.
+# gemma-2b (the main path), dbrx-132b (already cut), musicgen-large and
+# phi-3-vision-4.2b serve at their own depth
+EARLIER_SERVE_LAYERS = {"zamba2-1.2b": 12, "yi-6b": 8, "chatglm3-6b": 8,
+                        "xlstm-350m": 8, "moonshot-v1-16b-a3b": 12}
+# musicgen-large and phi-3-vision-4.2b train at full depth: their states
+# are 38.8 and 61.1 GB at 16 bytes a parameter (phi-3-vision's train phase
+# peaked at 68.1 GB, H100).  They train at 1e-5: over 5 steps from a
+# random init their losses spiked and did not fall at 3e-4 (gemma-2b's
+# rate; musicgen 8.33 to 21.4), 1e-4, 5e-5 and 3e-5 (musicgen) and at
+# 1e-4 and 5e-5 (phi-3-vision), and fell at 1e-5 (musicgen 8.33 to 7.50,
+# phi-3-vision 10.95 to 9.43) (H100, a sweep of this phase's runs).  48
+# and 32 layers of random weights, each moved by about lr by Adam's first
+# steps, tolerate less than gemma-2b's 18
+MUSICGEN_TRAIN_LR = 1e-5
+PHI3V_TRAIN_LAYERS = None
+PHI3V_TRAIN_LR = 1e-5
 
 
 def emit(obj) -> None:
@@ -457,13 +540,16 @@ def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen,
 
 # Decode shapes whose lanes own 16-byte chunks past D, which the kernel
 # never copies into its ring: fp32 at D <= 128 (a lane's second chunk) and
-# at D = 160, bf16 where D / 8 is no power of 2 (D 96, 160); zamba2's
-# shape in fp32 among them.  (dtype, B, K, G, D, length)
+# at D = 160 or 192, bf16 where D / 8 is no power of 2 (D 96, 160, 192);
+# zamba2's shape in fp32, phi-3-vision-4.2b's (G 1, D 96) and
+# nemotron-4-340b's (G 12: a block of 8 heads and one of 4 with 4 masked;
+# D 192) among them.  (dtype, B, K, G, D, length)
 STALE_SHARED_CASES = [
     (torch.float32, 4, 32, 1, 64, 160), (torch.float32, 2, 2, 16, 128, 161),
     (torch.float32, 2, 1, 4, 16, 37), (torch.float32, 2, 2, 4, 160, 161),
     (torch.bfloat16, 2, 2, 4, 96, 161), (torch.bfloat16, 2, 2, 4, 160, 33),
-    (torch.bfloat16, 4, 1, 8, 96, 1024)]
+    (torch.bfloat16, 4, 1, 8, 96, 1024), (torch.bfloat16, 4, 32, 1, 96, 160),
+    (torch.bfloat16, 4, 8, 12, 192, 161), (torch.float32, 2, 2, 12, 192, 33)]
 
 
 def _stale_shared_cases(gen) -> list:
@@ -493,9 +579,13 @@ def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
     wrapper chose; the same inputs again must give the same bits (the K
     split is merged in a fixed order); with ``stale_nan`` every SM's shared
     memory is filled with NaN just before the kernel, so a ring slot read
-    before its copy lands shows.  Timed beside the plain version and
-    ``torch.matmul``, with the wrapper's host time a call, unless
-    ``timer`` is None."""
+    before its copy lands shows.  A weight of 2^31 bytes or more
+    (nemotron-4-340b's w_up and w_down): also the last row of w alone,
+    selected by an x that is 1 in its last column and 0 elsewhere, must
+    come out exactly (one product a sum), and the last column of y must
+    meet the float64 product.  Timed beside
+    the plain version and ``torch.matmul``, with the wrapper's host time a
+    call, unless ``timer`` is None."""
     x = (torch.randn((M, K), generator=gen, device="cuda") * 0.1).to(dtype)
     w = (torch.randn((K, N), generator=gen, device="cuda") * 0.1).to(dtype)
     if stale_nan:
@@ -515,6 +605,20 @@ def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
         route=route, plan=dict(n_split=n_split, k_chunk=k_chunk),
         max_abs_err=err, bit_identical_rerun=same, tol=TOL[dtype],
         ok=ok and same)
+    del plain, again
+    if K * N * x.element_size() >= 1 << 31:
+        sel = torch.zeros_like(x)
+        sel[:, -1] = 1
+        last_row = ops.tiered_matmul(sel, w)
+        col = (x.double() @ w[:, -1].double()).to(dtype)
+        col_err, col_ok = _compare(out[:, -1], col, dtype)
+        row["far_end"] = dict(
+            w_bytes=K * N * x.element_size(),
+            last_row_exact=torch.equal(last_row, w[-1:].expand(M, N)),
+            last_column_max_abs_err=col_err, last_column_ok=col_ok)
+        row["ok"] = (row["ok"] and row["far_end"]["last_row_exact"]
+                     and col_ok)
+        del sel, last_row
     if timer is None:
         return row
     size = x.element_size()
@@ -523,7 +627,10 @@ def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
     row["ms"] = timer(lambda: ops.tiered_matmul(x, w))
     row["plain_ms"] = timer(lambda: mm.tiered_matmul_plain(x, w))
     row["library_ms"] = timer(lambda: torch.matmul(x, w))
-    row["host_us"] = _host_us(lambda: ops.tiered_matmul(x, w))
+    # 100 calls above 256 MB of weight: each call streams it all, and 1000
+    # of nemotron's 2.7 GB products would take ~1 s of the card each
+    row["host_us"] = _host_us(lambda: ops.tiered_matmul(x, w),
+                              1000 if K * N * size <= 1 << 28 else 100)
     return row
 
 
@@ -1014,11 +1121,13 @@ def _ssd_f64_errors(a, k, v, q, s0, dy, dfin, chunk, grads) -> dict:
 
 
 def _layer_products(cfg) -> list:
-    """One attention layer's 7 products of a dense config, (name, K, N)."""
+    """One attention layer's products of a dense config, (name, K, N): 7
+    with a gated MLP, 6 with the plain one (no w_gate)."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    gate = [] if cfg.mlp_type == "mlp" else [("w_gate", d, f)]
     return [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
             ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
-            ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+            *gate, ("w_up", d, f), ("w_down", f, d)]
 
 
 def _path_products():
@@ -1113,6 +1222,26 @@ def phase_check(timer) -> list:
             for name, K, N in _moe_layer_products(acfg):
                 rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
                                          f"{arch}:{name}"))
+        # phi-3-vision-4.2b's decode (G 1, K 32, D 96) and nemotron-4-
+        # 340b's (G 12: a block of 8 heads and one of 4 with 4 masked; K
+        # 8, D 192) over one layer's cache view (musicgen-large's, K 32, G
+        # 1, D 64, is zamba2's shared block's, above), and each layer's
+        # products: musicgen's and nemotron's plain MLP 2, phi-3-vision's
+        # SwiGLU 3; nemotron's w_up and w_down (2.7 GB each in bf16) with
+        # the far end of the weight checked
+        for arch in ("musicgen-large", "phi-3-vision-4.2b",
+                     "nemotron-4-340b"):
+            acfg = get_config(arch)
+            if arch != "musicgen-large":
+                for length in (0, 1, 160, 1024):
+                    rows.append(_decode_case(
+                        timer, dtype, 4, acfg.n_kv_heads,
+                        acfg.n_heads // acfg.n_kv_heads,
+                        acfg.resolved_head_dim, 1024, length, True, gen))
+            for name, K, N in _layer_products(acfg):
+                rows.append(_matmul_case(timer, dtype, 4, K, N, gen,
+                                         f"{arch}:{name}"))
+                torch.cuda.empty_cache()
         for case in (
                 (1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
                 (2, 2, 2, 256, 256, 128, True), (2, 2, 2, 256, 256, 128, False),
@@ -1128,12 +1257,20 @@ def phase_check(timer) -> list:
                 # dbrx-132b's G 6 (no power of 2), causal and not
                 (1, 2, 6, 300, 300, 128, True),
                 (1, 2, 6, 256, 384, 128, False),
+                # phi-3-vision-4.2b's D 96 (the D 128 instantiation) and
+                # nemotron-4-340b's G 12 at D 192 (the D 256 one), S and T
+                # multiples of no tile, causal and not
+                (1, 4, 1, 300, 300, 96, True),
+                (1, 2, 12, 300, 300, 192, True),
+                (1, 2, 12, 256, 384, 192, False),
                 # peaked scores (q x 8): the running max moves
                 (1, 1, 8, 300, 300, 256, True, 8.0),
                 (1, 32, 1, 512, 512, 64, True, 8.0),
                 (1, 2, 4, 128, 300, 128, False, 8.0),
                 (1, 2, 16, 300, 300, 128, True, 8.0),
                 (1, 2, 6, 300, 300, 128, True, 8.0),
+                (1, 4, 1, 300, 300, 96, True, 8.0),
+                (1, 2, 12, 300, 300, 192, True, 8.0),
                 TRAIN_SHAPE + (True,)):
             if len(case) > 7 and dtype not in PEAKED_DTYPES:
                 continue
@@ -1151,10 +1288,15 @@ def phase_check(timer) -> list:
     for r in rows:
         if r["kernel"] == "decode_attention" and "ms" in r:
             r["launch_floor_ms"] = floor_ms
-    # zamba2's shared attention in training, then yi-6b's, chatglm3-6b's
-    # and dbrx-132b's attention, bf16 as the paths run them
+    # zamba2's shared attention in training, then yi-6b's, chatglm3-6b's,
+    # dbrx-132b's, musicgen-large's, phi-3-vision-4.2b's (also with its 144
+    # patch positions) and nemotron-4-340b's attention, bf16 as the paths
+    # run them; musicgen's with its 64 frames untimed (the last key tile
+    # ragged at D 64)
     for shape in (ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE, GLM_FLASH_SHAPE,
-                  DBRX_FLASH_SHAPE):
+                  DBRX_FLASH_SHAPE, MUSICGEN_FLASH_SHAPE, PHI3V_FLASH_SHAPE,
+                  PHI3V_FRONT_FLASH_SHAPE, NEMOTRON_FLASH_SHAPE,
+                  (2, 32, 1, 2112, 2112, 64)):
         rows += _flash_case(timer, torch.bfloat16, *shape, True, gen)
         torch.cuda.empty_cache()
     zr = zcfg.reduced()
@@ -1335,7 +1477,23 @@ def _decode_errors(cfg, cpu, gpu, prompts, S, window=None,
     return out
 
 
-def phase_parity(arch: str, heads: int = None) -> dict:
+def _kv_rounding(cfg, params, prompts, S) -> float:
+    """Largest distance, on the CPU, between the logits of one decode step
+    per prompt token with a bf16 KV cache and with an fp32 one: how far
+    rounding the cache to bf16 moves the logits."""
+    B, P = prompts.shape
+    caches = [lm.init_cache(cfg, B, S, device="cpu", kv_dtype=kv)
+              for kv in (torch.bfloat16, torch.float32)]
+    err = 0.0
+    for i in range(P):
+        a, b = (lm.decode_step(params, cfg, c, prompts[:, i], i)
+                for c in caches)
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def phase_parity(arch: str, heads: int = None, head_dim: int = None
+                 ) -> dict:
     """A reduced config with the same fp32 weights on the card and on the
     CPU: identical greedy tokens, logits within PARITY_TOL after each
     decode step and after ``forward`` over 600 positions (zamba2: three
@@ -1347,11 +1505,19 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     heads over one KV head, so that the kernels run the config's real G
     (``reduced()`` leaves G = 4); for xlstm-350m one head makes the mLSTM's
     state N 128 x P 129, so that the 600-position forward runs the SSD
-    forward's wide route (``reduced()`` gives N 32, P 33)."""
+    forward's wide route (``reduced()`` gives N 32, P 33).  ``head_dim``:
+    the config's real head width (``reduced()`` sets 16), so that the
+    kernels run its D inside the model (phi-3-vision-4.2b's 96,
+    nemotron-4-340b's 192).  A config with a frontend also runs
+    ``forward`` with its reduced frontend embeddings (4 positions before
+    the tokens) on both sides, within PARITY_TOL."""
     cfg = get_config(arch).reduced()
     if heads is not None:
         cfg = dataclasses.replace(cfg, name=f"{cfg.name}-g{heads}",
                                   n_heads=heads, n_kv_heads=1)
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}-d{head_dim}",
+                                  head_dim=head_dim)
     # the same draws from one CPU generator, placed on either device
     cpu, gpu = (lm.init_params(cfg, torch.Generator().manual_seed(0),
                                device=d, dtype=torch.float32)
@@ -1369,6 +1535,7 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     hybrid = cfg.block_pattern == "mamba_shared_attn"
     xlstm = cfg.block_pattern == "xlstm"
     dec = _decode_errors(cfg, cpu, gpu, prompts, S)
+    kv_rounding = arch in KV_ROUNDING_ARCHS
     res = dict(phase="parity", arch=cfg.name, params="float32",
                G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim,
                tokens_identical=same, logits_max_abs_err=dec["logits"],
@@ -1376,7 +1543,10 @@ def phase_parity(arch: str, heads: int = None) -> dict:
                tol=(ZAMBA_DECODE_TOL if hybrid else
                     MOE_DECODE_TOL if cfg.is_moe else PARITY_TOL),
                forward_tol=PARITY_TOL)
-    if cfg.is_moe:
+    if kv_rounding:
+        res["cpu_bf16_kv_rounding"] = _kv_rounding(cfg, cpu, prompts, S)
+        res["tol"] = max(PARITY_TOL, res["cpu_bf16_kv_rounding"])
+    if cfg.is_moe or kv_rounding:
         res["decode_fp32_kv_logits_max_abs_err"] = _decode_errors(
             cfg, cpu, gpu, prompts, S, kv=torch.float32)["logits"]
     if xlstm:
@@ -1394,6 +1564,15 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     got, _ = lm.forward(gpu, cfg, seq.cuda())
     res["forward_launches"] = ops.launch_counts()
     res["forward_logits_max_abs_err"] = (got.cpu() - want).abs().max().item()
+    if cfg.frontend:
+        fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                         generator=torch.Generator().manual_seed(3))
+        want, _ = lm.forward(cpu, cfg, seq, fe)
+        got, _ = lm.forward(gpu, cfg, seq.cuda(), fe.cuda())
+        res["frontend"] = dict(
+            kind=cfg.frontend, positions=cfg.frontend_tokens,
+            logits_shape=list(got.shape),
+            logits_max_abs_err=(got.cpu() - want).abs().max().item())
     emit(res)
     require(same, "greedy tokens identical on card and CPU")
     require(res["logits_max_abs_err"] <= res["tol"], "logits within tolerance")
@@ -1412,36 +1591,38 @@ def phase_parity(arch: str, heads: int = None) -> dict:
     else:
         require(res["forward_launches"]["flash_attention"] == cfg.n_layers,
                 "the forward ran the flash kernel on every layer")
-    if cfg.is_moe:
+    if cfg.is_moe or kv_rounding:
         require(res["decode_fp32_kv_logits_max_abs_err"] <= PARITY_TOL,
                 "with an fp32 KV cache, decode logits within PARITY_TOL")
+    if cfg.is_moe:
         require(generate_launches["tiered_matmul_experts"]
                 == 3 * cfg.n_layers * (P + n_new),
                 "every routed product of the card's decode ran the expert "
                 f"route ({generate_launches})")
     require(res["forward_logits_max_abs_err"] <= PARITY_TOL,
             "forward logits within tolerance")
+    if cfg.frontend:
+        require(res["frontend"]["logits_shape"] == [
+            B, cfg.frontend_tokens + 600, cfg.vocab_size]
+            and res["frontend"]["logits_max_abs_err"] <= PARITY_TOL,
+            "forward with frontend embeddings within tolerance")
     return res
 
 
 def _expected_launches(cfg, path: str, steps: int) -> dict:
-    """Exact launches of each kernel entry point on a path.  serve: per
-    decode step, gemma-2b 18 decode attentions and 7 x 18 products; zamba2
-    7 decode attentions (the shared block's applications) and 2 x 38 + 7 x 7
-    products; yi-6b 32 and 7 x 32, chatglm3-6b 28 and 7 x 28 (serve_yi,
-    serve_chatglm3).  train: per step, every layer's forward twice (remat)
-    and its backward once: gemma-2b 36 + 18 flash launches; zamba2 14 + 7
-    flash and 76 + 38 SSD launches, 380 and 190 over 5 steps; yi-6b and
-    chatglm3-6b cut to 8 layers 16 + 8 (train_yi, train_chatglm3).
-    xlstm-350m (21 mLSTM, 3 sLSTM layers): serve 3 x 21 + 2 x 3 = 69
-    products a step and no attention or SSD launch; train 42 + 21 SSD
-    launches a step, 210 and 105 over 5 steps, and no flash launch.  MoE:
-    serve per layer and step one decode attention, 4 attention products
-    and 3 shared-expert ones (none for dbrx) through tiered_matmul and the
-    3 routed products through its expert route: moonshot-v1-16b-a3b 48,
-    336 and 144 a step, dbrx-132b at 8 layers 8, 32 and 24; train as a
-    dense config (the experts' products go to torch.matmul), moonshot at
-    4 layers 8 + 4 flash launches a step."""
+    """Exact launches of each kernel entry point on a path, from the
+    (possibly cut) config.  serve, per decode step and attention layer:
+    one decode attention and 4 attention products through tiered_matmul,
+    and the MLP's 3 (gated) or 2 (plain: musicgen-large, nemotron-4-340b);
+    zamba2 one decode attention and 7 products a shared-block application
+    and 2 products a Mamba-2 layer; xlstm-350m 3 products an mLSTM layer
+    and 2 an sLSTM layer, no attention or SSD launch; MoE 4 attention
+    products and 3 shared-expert ones (none for dbrx) through tiered_matmul
+    and the 3 routed products through its expert route.  train, per step:
+    every attention layer's flash forward twice (remat) and its backward
+    once; zamba2 also 2 + 1 SSD launches a Mamba-2 layer, xlstm 2 + 1 an
+    mLSTM layer and no flash launch; MoE as a dense config (the experts'
+    products go to torch.matmul)."""
     counts = dict.fromkeys(ops.launch_counts(), 0)
     if cfg.block_pattern == "xlstm":
         n_m, n_s = lm._xlstm_counts(cfg)
@@ -1461,7 +1642,8 @@ def _expected_launches(cfg, path: str, steps: int) -> dict:
     elif path == "serve":
         counts["decode_attention"] = attn * steps
         mamba = 2 * L if cfg.block_pattern == "mamba_shared_attn" else 0
-        counts["tiered_matmul"] = (7 * attn + mamba) * steps
+        mlp = 2 if cfg.mlp_type == "mlp" else 3
+        counts["tiered_matmul"] = ((4 + mlp) * attn + mamba) * steps
     else:
         counts["flash_attention"] = 2 * attn * steps
         counts["flash_attention_bwd"] = attn * steps
@@ -1650,7 +1832,8 @@ def _free() -> None:
 def phase_serve(arch: str, name: str, layers: int = None) -> dict:
     """A full-width model, bf16, batch 4, three requests of 128 + 32
     tokens under the runtime; the third repeats the first.  ``layers``
-    cuts the depth (the row says so under ``reduced``)."""
+    cuts the depth (the row says so under ``reduced``, with the reason:
+    weights that fit no tier, or the run's time limit)."""
     _free()
     cfg = full = get_config(arch)
     if layers is not None:
@@ -1694,7 +1877,11 @@ def phase_serve(arch: str, name: str, layers: int = None) -> dict:
             n_layers=[full.n_layers, layers],
             reason=f"bf16 weights of the whole model, "
                    f"{2 * full.n_params() / 1e9:.1f} GB, fit neither the "
-                   "card's 80 GB nor the 108 GB host tier"),
+                   "card's 80 GB nor the 108 GB host tier"
+            if 2 * full.n_params() > 80e9 else
+            "the run's time limit: the decode step is host-bound, so its "
+            "time grows with the layers, which all run the same kernels at "
+            "the same shapes (EARLIER_SERVE_LAYERS)"),
         requests=3, init_s=init_s, request_s=secs, ms_per_step=wall_ms,
         tokens_per_s=[B * (P + n_new) / s for s in secs],
         peak_mem_bytes=peak, launches=launches, launches_expected=expect,
@@ -1814,7 +2001,10 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
             n_layers=[full.n_layers, layers],
             reason=f"training state of the whole model, "
                    f"{16 * full.n_params() / 1e9:.1f} GB at 16 bytes a "
-                   "parameter, does not fit the card's 80 GB"),
+                   "parameter, does not fit the card's 80 GB"
+            if 16 * full.n_params() > 80e9 else
+            "the run's time limit: the step is host-bound by the sLSTM's "
+            "Python loop (XLSTM_TRAIN_LAYERS)"),
         optimizer=dict(lr=opt.lr, master_fp32=opt.master_fp32,
                        moments=opt.moments_dtype),
         losses=res.losses, grad_norms=res.grad_norms, ms_per_step=ms,
@@ -1833,6 +2023,9 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
     res_row["profile"] = _train_profile(cfg, tcfg, opt, min(ms[1:]),
                                         profile_steps)
     res_row["profile"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if cfg.frontend:
+        _free()
+        res_row["frontend_step"] = _frontend_step(cfg, B, S)
     print(json.dumps(res_row, default=str), flush=True)
     losses = res_row["losses"]
     require(all(math.isfinite(x) for x in losses), "every loss finite")
@@ -1841,6 +2034,13 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
     require(launches == expect, f"launch counts {launches} == {expect}")
     require(again is None or again == losses,
             f"a second run gives the same losses ({again} == {losses})")
+    if cfg.frontend:
+        fs = res_row["frontend_step"]
+        require(all(math.isfinite(x) for x in fs["loss"])
+                and all(g > 0 for g in fs["grad_abs_max"].values())
+                and fs["launches"] == fs["launches_expected"],
+                f"the frontend step: finite losses, nonzero gradients "
+                f"({fs['grad_abs_max']}), launch counts")
     reg = res_row["runtime"]["registered"]
     require(res_row["runtime"]["phases"] == ["data", "step", "ckpt"]
             and "opt_state" in planned and "opt_state" in reg
@@ -1848,6 +2048,58 @@ def phase_train(arch: str, S: int, name: str, layers: int = None,
             "the runtime planned opt_state (params pinned) over the "
             "phases data, step, ckpt")
     return res_row
+
+
+def _frontend_step(cfg, B: int, S: int) -> dict:
+    """``lm.loss_fn`` forward and backward (per-layer remat) with
+    ``batch["frontend"]`` at full width, twice, on a fresh model: B x
+    ``frontend_tokens`` embeddings drawn from a seeded generator before B x
+    S tokens -- musicgen-large's 64 conditioning frames (std 0.02, the
+    token embeddings' scale) or phi-3-vision-4.2b's 144 CLIP patch
+    embeddings (std 1, projected by ``frontend_proj``).  Reports each
+    call's ms (CUDA events), the peak memory, the kernel launches and the
+    largest gradient on ``frontend_proj`` (vision) and on the embeddings."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = lm.init_params(cfg, gen, device="cuda")
+    leaves, treedef = _tree.flatten(params)
+    for t in leaves:
+        t.requires_grad_()
+    tree = _tree.unflatten(treedef, leaves)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                         generator=gen)
+    scale = 1.0 if cfg.frontend == "vision" else 0.02
+    fe = (torch.randn((B, cfg.frontend_tokens, cfg.d_model), device="cuda",
+                      generator=gen) * scale).to(torch.bfloat16)
+    fe.requires_grad_()
+    batch = {"tokens": toks, "labels": toks, "frontend": fe}
+    proj = [i for i, (p, _) in enumerate(_tree.flatten_with_path(tree)[0])
+            if p == "['frontend_proj']"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = dict(loss=[], ms=[])
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss, _ = lm.loss_fn(tree, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, leaves + [fe],
+                                    materialize_grads=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["loss"].append(float(loss.detach()))
+        out["ms"].append(ev[0].elapsed_time(ev[1]))
+    out["launches"] = ops.launch_counts()
+    L = cfg.n_layers
+    out["launches_expected"] = dict.fromkeys(out["launches"], 0)
+    out["launches_expected"].update(flash_attention=2 * 2 * L,
+                                    flash_attention_bwd=2 * L)
+    out["grad_abs_max"] = {"frontend": grads[-1].abs().max().item()}
+    for i in proj:
+        out["grad_abs_max"]["frontend_proj"] = grads[i].abs().max().item()
+    out.update(kind=cfg.frontend, positions=cfg.frontend_tokens,
+               seq_len=S + cfg.frontend_tokens, batch=B,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del params, leaves, tree, grads, loss
+    return out
 
 
 TRAIN_GROUPS = {
@@ -2081,19 +2333,38 @@ def _arch_shapes(checks, name) -> list:
     the model pads them); at moonshot-v1-16b-a3b's and dbrx-132b's: decode
     (G 1 and 6), a layer's attention and shared-expert products and its 3
     routed products (the expert route, batch 4) summed, and dbrx's flash
-    pair at G 6."""
+    pair at G 6; at musicgen-large's (decode at zamba2's shared block's
+    shape, K 32, G 1, D 64; the plain MLP's 6 products a layer), phi-3-
+    vision-4.2b's (D 96; the flash pair at 2048 and at 2048 + 144 patch
+    positions, "+frontend") and nemotron-4-340b's (G 12, D 192; its 6
+    products, and w_up and w_down alone, "...:w_up", and the flash pair at
+    batch 1, on no path)."""
     out = []
     for arch, flash in (("yi-6b", YI_FLASH_SHAPE),
                         ("chatglm3-6b", GLM_FLASH_SHAPE),
                         ("xlstm-350m", None),
                         ("moonshot-v1-16b-a3b", None),
-                        ("dbrx-132b", DBRX_FLASH_SHAPE)):
+                        ("dbrx-132b", DBRX_FLASH_SHAPE),
+                        ("musicgen-large", MUSICGEN_FLASH_SHAPE),
+                        ("phi-3-vision-4.2b", PHI3V_FLASH_SHAPE),
+                        ("phi-3-vision-4.2b+frontend",
+                         PHI3V_FRONT_FLASH_SHAPE),
+                        ("nemotron-4-340b", NEMOTRON_FLASH_SHAPE),
+                        ("nemotron-4-340b:w_up", None),
+                        ("nemotron-4-340b:w_down", None)):
+        # "arch+frontend": the flash pair only; "arch:product": that
+        # product only
+        label, front, one = arch, "+" in arch, ":" in arch
+        arch = arch.split("+")[0].split(":")[0]
         acfg = get_config(arch)
 
         def want(r):
             s = r["shape"]
-            if r["kernel"] != name:
+            if r["kernel"] != name or (front and not name.startswith("flash")):
                 return False
+            if one:
+                return (name == "tiered_matmul" and r["dtype"] == "bfloat16"
+                        and s["product"] == label)
             if name.startswith("ssd_scan"):
                 return (arch == "xlstm-350m" and "ms" in r
                         and (s["B"], s["H"], s["S"], s["N"], s["P"],
@@ -2102,7 +2373,7 @@ def _arch_shapes(checks, name) -> list:
             if r["dtype"] != "bfloat16":
                 return False
             if name == "decode_attention":
-                return (s["cache_view"] and s["length"] == 160
+                return ("ms" in r and s["cache_view"] and s["length"] == 160
                         and (s["K"], s["G"], s["D"]) == (
                             acfg.n_kv_heads, acfg.n_heads // acfg.n_kv_heads,
                             acfg.resolved_head_dim))
@@ -2121,7 +2392,7 @@ def _arch_shapes(checks, name) -> list:
             continue
         libs = [r["library_ms"] for r in rows]
         entry = dict(
-            arch=arch, rows=len(rows),
+            arch=label, rows=len(rows),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
@@ -2368,6 +2639,30 @@ def parent_ssd_ms(other: str) -> dict:
     return ms
 
 
+def lr_sweep(arch: str, layers: int, rates) -> int:
+    """5 steps of ``train/loop.py`` (batch 2 x 2048, the train phases'
+    settings, no profile) of ``arch`` at full width, cut to ``layers``
+    (0: its own depth), at each learning rate: one line each with the
+    losses, grad norms and step ms.  How the train phases' rates were
+    chosen (``SIX_B_TRAIN_LR``, ``XLSTM_TRAIN_LR``, ``MUSICGEN_TRAIN_LR``,
+    ``PHI3V_TRAIN_LR``)."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    for lr in rates:
+        _free()
+        tcfg = TrainConfig(steps=5, global_batch=2, seq_len=2048, lr=lr,
+                           remat=True, log_every=1, seed=0,
+                           machine=H100_HBM_HOST, device="cuda")
+        res = train(cfg, tcfg, AdamWConfig(lr=lr))
+        emit(dict(phase="lr_sweep", arch=cfg.name, layers=cfg.n_layers,
+                  lr=lr, losses=res.losses, grad_norms=res.grad_norms,
+                  ms_per_step=[1e3 * t for t in res.step_times],
+                  losses_fall=sum(res.losses[-2:]) / 2 < res.losses[0]))
+        del res
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2379,41 +2674,78 @@ def main() -> int:
         return slstm_autograd()
     if sys.argv[1:] == ["--trace-drops"]:
         return trace_drops()
+    if len(sys.argv) >= 5 and sys.argv[1] == "--lr-sweep":
+        return lr_sweep(sys.argv[2], int(sys.argv[3]),
+                        [float(x) for x in sys.argv[4:]])
     parent = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--parent" \
         else None
     t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its wall time added to seconds[name]."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
     info = phase_device()
-    phase_build()
+    timed("build", phase_build)
     timer = Timer()
-    checks = phase_check(timer)
-    parent_ms = parent_ssd_ms(parent) if parent else None
-    phase_runtime(timer)
-    phase_parity("gemma-2b")
-    phase_parity("zamba2-1.2b")
-    for arch, heads in (("yi-6b", None), ("yi-6b", 8), ("chatglm3-6b", None),
-                        ("chatglm3-6b", 16), ("xlstm-350m", None),
-                        ("xlstm-350m", 1), ("moonshot-v1-16b-a3b", None),
-                        ("dbrx-132b", None), ("dbrx-132b", 6)):
-        phase_parity(arch, heads)
-    phase_sim()
-    paths = [phase_serve("gemma-2b", "serve"),
-             phase_train("gemma-2b", 2048, "train"),
-             phase_serve("zamba2-1.2b", "serve_zamba2"),
-             phase_train("zamba2-1.2b", 4096, "train_zamba2"),
-             phase_serve("yi-6b", "serve_yi"),
-             phase_train("yi-6b", 2048, "train_yi", SIX_B_TRAIN_LAYERS,
-                         SIX_B_TRAIN_LR),
-             phase_serve("chatglm3-6b", "serve_chatglm3"),
-             phase_train("chatglm3-6b", 2048, "train_chatglm3",
-                         SIX_B_TRAIN_LAYERS, SIX_B_TRAIN_LR),
-             phase_serve("xlstm-350m", "serve_xlstm"),
-             # one profiled step: the sLSTM's loop is ~10^5 launches a step
-             phase_train("xlstm-350m", 2048, "train_xlstm", lr=XLSTM_TRAIN_LR,
-                         rerun=True, profile_steps=1),
-             phase_serve("moonshot-v1-16b-a3b", "serve_moonshot"),
-             phase_serve("dbrx-132b", "serve_dbrx", DBRX_SERVE_LAYERS),
-             phase_train("moonshot-v1-16b-a3b", 2048, "train_moonshot",
-                         MOE_TRAIN_LAYERS, MOE_TRAIN_LR, rerun=True)]
+    checks = timed("check", phase_check, timer)
+    parent_ms = timed("parent", parent_ssd_ms, parent) if parent else None
+    timed("runtime", phase_runtime, timer)
+    for arch, heads, head_dim in (
+            ("gemma-2b", None, None), ("zamba2-1.2b", None, None),
+            ("yi-6b", None, None), ("yi-6b", 8, None),
+            ("chatglm3-6b", None, None), ("chatglm3-6b", 16, None),
+            ("xlstm-350m", None, None), ("xlstm-350m", 1, None),
+            ("moonshot-v1-16b-a3b", None, None), ("dbrx-132b", None, None),
+            ("dbrx-132b", 6, None), ("musicgen-large", None, None),
+            ("phi-3-vision-4.2b", None, None), ("nemotron-4-340b", None, None),
+            ("nemotron-4-340b", 12, None),
+            # the real head widths inside the model: phi-3-vision-4.2b's D
+            # 96 and nemotron-4-340b's D 192 at its real G 12
+            ("phi-3-vision-4.2b", None, 96), ("nemotron-4-340b", 12, 192)):
+        timed("parity", phase_parity, arch, heads, head_dim)
+    timed("sim", phase_sim)
+    paths = [
+        timed("serve", phase_serve, "gemma-2b", "serve"),
+        timed("train", phase_train, "gemma-2b", 2048, "train"),
+        timed("serve_zamba2", phase_serve, "zamba2-1.2b", "serve_zamba2",
+              EARLIER_SERVE_LAYERS["zamba2-1.2b"]),
+        timed("train_zamba2", phase_train, "zamba2-1.2b", 4096,
+              "train_zamba2"),
+        timed("serve_yi", phase_serve, "yi-6b", "serve_yi",
+              EARLIER_SERVE_LAYERS["yi-6b"]),
+        timed("train_yi", phase_train, "yi-6b", 2048, "train_yi",
+              SIX_B_TRAIN_LAYERS, SIX_B_TRAIN_LR),
+        timed("serve_chatglm3", phase_serve, "chatglm3-6b", "serve_chatglm3",
+              EARLIER_SERVE_LAYERS["chatglm3-6b"]),
+        timed("train_chatglm3", phase_train, "chatglm3-6b", 2048,
+              "train_chatglm3", SIX_B_TRAIN_LAYERS, SIX_B_TRAIN_LR),
+        timed("serve_xlstm", phase_serve, "xlstm-350m", "serve_xlstm",
+              EARLIER_SERVE_LAYERS["xlstm-350m"]),
+        # one profiled step: the sLSTM's loop is ~10^5 launches a step
+        timed("train_xlstm", phase_train, "xlstm-350m", 2048, "train_xlstm",
+              XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_LR, rerun=True,
+              profile_steps=1),
+        timed("serve_moonshot", phase_serve, "moonshot-v1-16b-a3b",
+              "serve_moonshot", EARLIER_SERVE_LAYERS["moonshot-v1-16b-a3b"]),
+        timed("serve_dbrx", phase_serve, "dbrx-132b", "serve_dbrx",
+              DBRX_SERVE_LAYERS),
+        timed("train_moonshot", phase_train, "moonshot-v1-16b-a3b", 2048,
+              "train_moonshot", MOE_TRAIN_LAYERS, MOE_TRAIN_LR, rerun=True),
+        timed("serve_musicgen", phase_serve, "musicgen-large",
+              "serve_musicgen"),
+        timed("train_musicgen", phase_train, "musicgen-large", 2048,
+              "train_musicgen", lr=MUSICGEN_TRAIN_LR),
+        timed("serve_phi3v", phase_serve, "phi-3-vision-4.2b", "serve_phi3v"),
+        timed("train_phi3v", phase_train, "phi-3-vision-4.2b", 2048,
+              "train_phi3v", PHI3V_TRAIN_LAYERS, PHI3V_TRAIN_LR),
+        timed("serve_nemotron", phase_serve, "nemotron-4-340b",
+              "serve_nemotron", NEMOTRON_SERVE_LAYERS)]
+    emit(dict(phase="seconds", by_phase=seconds))
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     print(json.dumps(line), flush=True)

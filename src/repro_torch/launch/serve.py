@@ -6,6 +6,8 @@
   python -m repro_torch.launch.serve --arch zamba2-1.2b --max-seq 1024
   python -m repro_torch.launch.serve --arch xlstm --reduced --device cpu
   python -m repro_torch.launch.serve --arch xlstm-350m --max-seq 1024
+  python -m repro_torch.launch.serve --arch musicgen --reduced --device cpu
+  python -m repro_torch.launch.serve --arch phi3v --max-seq 1024
 """
 
 from __future__ import annotations

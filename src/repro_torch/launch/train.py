@@ -6,6 +6,8 @@
   python -m repro_torch.launch.train --arch zamba2-1.2b --batch 2 --seq-len 4096 --steps 5
   python -m repro_torch.launch.train --arch xlstm --reduced --device cpu --steps 3 --batch 2 --seq-len 32
   python -m repro_torch.launch.train --arch xlstm-350m --batch 2 --seq-len 2048 --steps 5
+  python -m repro_torch.launch.train --arch musicgen --reduced --device cpu --steps 3 --batch 2 --seq-len 32
+  python -m repro_torch.launch.train --arch musicgen-large --batch 2 --seq-len 2048 --steps 5
 """
 
 from __future__ import annotations

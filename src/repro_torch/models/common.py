@@ -89,8 +89,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 # ------------------------------------------------------------------ init
 #: leaves of more elements than this are drawn slab by slab (below it, in
-#: one fp32 draw: every leaf of the dense, hybrid and xlstm configs, the
-#: largest chatglm3-6b's stacked w_gate of 1.57e9 elements)
+#: one fp32 draw: every leaf of the hybrid and xlstm configs and of the
+#: dense ones but nemotron-4-340b, the largest chatglm3-6b's stacked
+#: w_gate of 1.57e9 elements)
 ONE_DRAW_MAX = 1 << 31
 #: elements of one slab's fp32 draw (1 GiB)
 SLAB_MAX = 1 << 28
@@ -104,7 +105,10 @@ def _normal(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     a slab holds at most SLAB_MAX elements), each slab its own fp32 draw
     from the same generator, so no more than ~1 GiB of fp32 is live: a
     whole draw of moonshot's stacked expert w_gate (8.86e9 elements) would
-    be a 35 GB fp32 transient beside its 17.7 GB result."""
+    be a 35 GB fp32 transient beside its 17.7 GB result.  A matrix whose
+    slabs are rows (nemotron-4-340b's embedding and head, 256000 x 18432
+    and its transpose, and each layer of its stacked MLP) is drawn in runs
+    of as many rows as SLAB_MAX holds: 18 draws for the embedding."""
     if math.prod(shape) <= ONE_DRAW_MAX:
         return (torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=generator.device) * std).to(dtype)
@@ -119,6 +123,10 @@ def _fill_slabs(out: torch.Tensor, generator: torch.Generator,
         out.copy_(torch.randn(out.shape, generator=generator,
                               dtype=torch.float32,
                               device=generator.device).mul_(std))
+        return
+    if out.dim() == 2 and out.shape[1] <= SLAB_MAX:
+        for rows in out.split(SLAB_MAX // out.shape[1]):
+            _fill_slabs(rows, generator, std)
         return
     for slab in out:
         _fill_slabs(slab, generator, std)

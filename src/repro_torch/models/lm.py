@@ -1,10 +1,12 @@
 """Language model assembly (embed -> blocks -> norm -> tied or untied
-head), for training and greedy decode.  Three block patterns are ported:
+head), for training and greedy decode.  Three block patterns:
 
 * ``attn``              -- dense transformers (gemma-2b, yi-6b,
-                          chatglm3-6b) and MoE transformers
-                          (moonshot-v1-16b-a3b, dbrx-132b: an MoE layer,
-                          :mod:`.moe`, in place of the MLP);
+                          chatglm3-6b, nemotron-4-340b), the vision and
+                          audio models (phi-3-vision-4.2b, musicgen-large)
+                          and MoE transformers (moonshot-v1-16b-a3b,
+                          dbrx-132b: an MoE layer, :mod:`.moe`, in place of
+                          the MLP);
 * ``mamba_shared_attn`` -- zamba2: a Mamba-2 backbone with one *shared*
                           attention block (its own KV cache per
                           application) before every ``attn_every`` layers;
@@ -14,7 +16,7 @@ head), for training and greedy decode.  Three block patterns are ported:
 
 Functional API, as in the reference package's ``models/lm.py``:
   init_params(cfg, generator, device, dtype)   -> params dict
-  forward(params, cfg, tokens, remat=)         -> (logits, aux)
+  forward(params, cfg, tokens, frontend_embeds, remat=) -> (logits, aux)
   loss_fn(params, cfg, batch, remat=)          -> (loss, {"nll", "aux"})
   init_cache(cfg, batch, max_seq, device)      -> decode cache dict
   decode_step(params, cfg, cache, token, pos)  -> logits (cache in place)
@@ -24,8 +26,14 @@ sums the MoE layers' aux losses over the layers, and ``loss_fn`` returns
 nll + 0.01 aux.  Parameters keep the reference's keys, shapes and stacked
 layer axis, so the runtime records the same leaf spans for them in both
 packages.  The reference scans over layers; here a Python loop walks
-per-layer views of the stacked tensors.  The plain two-layer MLP
-(``mlp_type="mlp"``) and the frontends are queued in ROADMAP.md.
+per-layer views of the stacked tensors.
+
+The frontends are stubs, as in the reference: ``forward`` takes
+precomputed embeddings (B, n_front, d) and puts them before the tokens,
+through ``frontend_proj`` for ``vision`` (phi-3-vision's CLIP patches) and
+as they are for ``audio`` (musicgen's conditioning frames).  ``loss_fn``
+drops their positions; serving and the train loop feed tokens only, as
+the reference's do.
 """
 
 from __future__ import annotations
@@ -40,16 +48,6 @@ from ..configs.base import ArchConfig
 from . import attention, mamba2, mlp as mlp_mod, moe as moe_mod, xlstm
 from .common import (dense_init, embed_init, layer_norm, rms_norm, rope_at,
                      rope_frequencies)
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if (cfg.block_pattern not in ("attn", "mamba_shared_attn", "xlstm")
-            or cfg.mlp_type not in ("swiglu", "geglu")
-            or cfg.frontend is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: the plain MLP (mlp_type='mlp') and the frontends "
-            "are not ported yet (ROADMAP.md, queue 1: 'The moe family and "
-            "the other five configs')")
 
 
 # ---------------------------------------------------------------- norms
@@ -93,7 +91,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters drawn from ``generator`` (on its own device) and
     placed on ``device``.  Same keys and shapes as the reference package;
     not the same numbers (its draws come from ``jax.random``)."""
-    _require_ported(cfg)
     L, d = cfg.n_layers, cfg.d_model
     params: Dict[str, Any] = {
         "embed": embed_init(generator, (cfg.vocab_size, d), dtype),
@@ -112,13 +109,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params["mamba_blocks"] = with_ln1(
             mamba2.init_mamba2_params(generator, cfg, L, dtype), L)
         params["shared_attn"] = _init_block(generator, cfg, None, dtype)
-    else:
+    elif cfg.block_pattern == "xlstm":
         n_m, n_s = _xlstm_counts(cfg)
         params["mlstm_blocks"] = with_ln1(
             xlstm.init_mlstm_params(generator, cfg, n_m, dtype), n_m)
         if n_s:
             params["slstm_blocks"] = with_ln1(
                 xlstm.init_slstm_params(generator, cfg, n_s, dtype), n_s)
+    else:
+        raise ValueError(cfg.block_pattern)
+    if cfg.frontend == "vision":
+        params["frontend_proj"] = dense_init(generator, (d, d), dtype)
     return _to(params, torch.device(device))
 
 
@@ -173,7 +174,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
     conv window (n_layers, batch, K - 1, C) in bf16.  ``xlstm``: per mLSTM
     layer the fp32 state (n_m, batch, H, P, P + 1), per sLSTM layer its
     fp32 h, c, n, m (n_s, batch, H, P); no keys or values.  All zeroed."""
-    _require_ported(cfg)
     if cfg.block_pattern == "xlstm":
         n_m, n_s = _xlstm_counts(cfg)
         cache = {"mlstm": _stacked(
@@ -243,18 +243,21 @@ def _apply(fn, remat: bool, *args):
 def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S).  Returns (logits (B, S, V) in the parameters' dtype,
-    aux loss: the sum of the MoE layers' load-balancing losses, fp32, 0
-    without MoE).  ``remat`` recomputes each
+    """tokens: (B, S_text); ``frontend_embeds``: (B, n_front, d) or None.
+    Returns (logits (B, n_front + S_text, V) in the parameters' dtype, aux
+    loss: the sum of the MoE layers' load-balancing losses, fp32, 0
+    without MoE).  The frontend positions come first and rope counts
+    them, so the text starts at position n_front.  ``remat`` recomputes each
     layer (and each application of zamba2's shared block) in the backward
     pass and keeps only its input, as the reference's
     ``jax.checkpoint(nothing_saveable)`` over the layer scan (and its
     ``jax.checkpoint`` of each sLSTM layer)."""
-    _require_ported(cfg)
-    if frontend_embeds is not None:
-        raise NotImplementedError("frontend embeddings are not ported (no "
-                                  "ported config has a frontend)")
     x = params["embed"][tokens]                              # (B, S, d)
+    if frontend_embeds is not None:
+        fe = frontend_embeds.to(x.dtype)
+        if cfg.frontend == "vision":                 # CLIP patch embeddings
+            fe = torch.matmul(fe, params["frontend_proj"])
+        x = torch.cat([fe, x], dim=1)                # audio: frames as is
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern == "xlstm":
         x = _xlstm_forward(params, cfg, x, remat)
@@ -311,10 +314,12 @@ def _xlstm_forward(params, cfg: ArchConfig, x, remat: bool):
 def loss_fn(params: Dict[str, Any], cfg: ArchConfig,
             batch: Dict[str, torch.Tensor], remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy in fp32: (loss, {"nll", "aux"})."""
+    """Next-token cross-entropy in fp32 over the text positions (the
+    frontend's carry no loss): (loss, {"nll", "aux"})."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           batch.get("frontend"), remat=remat)
-    logits = logits[:, :-1].float()
+    n_front = logits.shape[1] - batch["tokens"].shape[1]
+    logits = logits[:, n_front:-1].float()
     targets = batch["labels"][:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
@@ -340,7 +345,6 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     and values (for zamba2 also each layer's SSM state and conv window; for
     xlstm each layer's recurrent state instead) into ``cache`` in place
     and returns logits (B, V)."""
-    _require_ported(cfg)
     x = params["embed"][token]                               # (B, d)
     if cfg.block_pattern == "xlstm":
         x = _xlstm_decode(params, cfg, cache, x)

@@ -27,7 +27,9 @@ def _grads(params, cfg: ArchConfig, batch, remat: bool
     live = [t.detach().requires_grad_() for t in leaves]
     loss, metrics = lm.loss_fn(_tree.unflatten(treedef, live), cfg, batch,
                                remat=remat)
-    grads = torch.autograd.grad(loss, live)
+    # a leaf the batch does not reach (``frontend_proj`` without frontend
+    # embeddings) gets a zero gradient, as under ``jax.grad``
+    grads = torch.autograd.grad(loss, live, materialize_grads=True)
     return list(grads), treedef, {k: v.detach() for k, v in metrics.items()}
 
 

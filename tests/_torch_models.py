@@ -3,7 +3,12 @@ hold it against the reference: gemma-2b, and yi-6b and chatglm3-6b both as
 ``reduced()`` makes them (one KV head, G = 4) and at their real G (8 and 16
 query heads over one KV head of the reduced width); the MoE family:
 moonshot-v1-16b-a3b (4 experts, top-2, one shared expert) and dbrx-132b
-(``layer`` norm, no shared expert) reduced, and dbrx at its real G 6."""
+(``layer`` norm, no shared expert) reduced, and dbrx at its real G 6; and
+the plain two-layer MLP: musicgen-large (gelu, ``layer`` norm; its audio
+frontend is not fed by serving or the train step) and nemotron-4-340b
+(squared ReLU) reduced, and nemotron at its real G 12; phi-3-vision-4.2b
+(SwiGLU, its vision frontend's ``frontend_proj`` among the parameters)
+reduced."""
 
 import dataclasses
 
@@ -18,7 +23,11 @@ MODEL_CASES = {"gemma-2b": ("gemma-2b", None), "yi-6b": ("yi-6b", None),
                "chatglm3-6b": ("chatglm3-6b", None),
                "chatglm3-6b-g16": ("chatglm3-6b", 16),
                "moonshot": ("moonshot-v1-16b-a3b", None),
-               "dbrx": ("dbrx-132b", None), "dbrx-g6": ("dbrx-132b", 6)}
+               "dbrx": ("dbrx-132b", None), "dbrx-g6": ("dbrx-132b", 6),
+               "musicgen": ("musicgen-large", None),
+               "phi3v": ("phi-3-vision-4.2b", None),
+               "nemotron": ("nemotron-4-340b", None),
+               "nemotron-g12": ("nemotron-4-340b", 12)}
 
 
 def reduced_case(case: str):

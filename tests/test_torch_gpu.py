@@ -47,7 +47,13 @@ def _randn(shape, dtype, seed, scale=1.0):
     # dbrx-132b's G 6 (a block of 8 heads, 2 masked) and moonshot-v1-16b-
     # a3b's G 1 over 16 KV heads, D 128
     (4, 8, 6, 128, 1024, 1, True), (4, 8, 6, 128, 1024, 160, True),
-    (4, 8, 6, 128, 1024, 1024, True), (4, 16, 1, 128, 1024, 160, True)])
+    (4, 8, 6, 128, 1024, 1024, True), (4, 16, 1, 128, 1024, 160, True),
+    # phi-3-vision-4.2b's D 96 (G 1, K 32) and nemotron-4-340b's G 12 (a
+    # block of 8 heads and one of 4 with 4 masked) at D 192 (24 chunks of
+    # 16 bytes a bf16 row: no power of 2)
+    (4, 32, 1, 96, 1024, 1, True), (4, 32, 1, 96, 1024, 160, True),
+    (4, 32, 1, 96, 1024, 1024, True), (4, 8, 12, 192, 1024, 1, True),
+    (4, 8, 12, 192, 1024, 160, True), (4, 8, 12, 192, 1024, 1024, True)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, B, K, G, D, T,
                                                length, view):
     da = importlib.import_module("repro_torch.kernels.decode_attention")
@@ -87,11 +93,13 @@ def test_decode_attention_kernel_with_peaked_scores_matches_float64(cuda,
     (torch.float32, 4, 32, 1, 64, 160), (torch.float32, 2, 2, 16, 128, 161),
     (torch.float32, 2, 1, 4, 16, 37), (torch.float32, 2, 2, 4, 160, 161),
     (torch.bfloat16, 2, 2, 4, 96, 161), (torch.bfloat16, 2, 2, 4, 160, 33),
-    (torch.bfloat16, 4, 1, 8, 96, 1024)])
+    (torch.bfloat16, 4, 1, 8, 96, 1024), (torch.bfloat16, 4, 32, 1, 96, 160),
+    (torch.bfloat16, 4, 8, 12, 192, 161), (torch.float32, 2, 2, 12, 192, 33)])
 def test_decode_attention_kernel_ignores_stale_shared_memory(cuda, dtype, B,
                                                              K, G, D, length):
     """Shapes whose lanes own 16-byte chunks past D, which the kernel never
-    copies (fp32 at D <= 128 or 160, bf16 at D 96 or 160): with every SM's
+    copies (fp32 at D <= 128, 160 or 192, bf16 at D 96, 160 or 192;
+    phi-3-vision-4.2b's and nemotron-4-340b's G 12 among them): with every SM's
     shared memory filled with NaN just before the call, the output still
     matches the plain version."""
     da = importlib.import_module("repro_torch.kernels.decode_attention")
@@ -151,6 +159,28 @@ def test_tiered_matmul_kernel_gives_the_same_bits_every_run(cuda, dtype, M,
     x, w = _randn((M, K), dtype, 8, 0.1), _randn((K, N), dtype, 9, 0.1)
     first = mm.tiered_matmul(x, w)
     assert all(torch.equal(first, mm.tiered_matmul(x, w)) for _ in range(3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(18432, 73728), (73728, 18432)])
+def test_tiered_matmul_kernel_reads_the_far_end_of_nemotrons_mlp(cuda, dtype,
+                                                                 K, N):
+    """nemotron-4-340b's w_up and w_down at batch 4: 1.36e9 elements, 2.7
+    GB in bf16 and 5.4 GB in fp32, so byte offsets pass 2^31.  The product
+    against the plain version; the last row of w alone (an x of 1 in its
+    last column, 0 elsewhere: one product a sum) comes out exactly; the
+    last column of y meets the float64 product."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x, w = _randn((4, K), dtype, 12, 0.1), _randn((K, N), dtype, 13, 0.1)
+    out = mm.tiered_matmul(x, w)
+    torch.testing.assert_close(out.float(), mm.tiered_matmul_plain(x, w)
+                               .float(), rtol=TOL[dtype], atol=TOL[dtype])
+    col = (x.double() @ w[:, -1].double()).to(dtype)
+    torch.testing.assert_close(out[:, -1].float(), col.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    sel = torch.zeros_like(x)
+    sel[:, -1] = 1
+    assert torch.equal(mm.tiered_matmul(sel, w), w[-1:].expand(4, N))
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 2048, 8384), (3, 100, 264)])
@@ -272,6 +302,51 @@ def test_reduced_moe_serves_the_same_tokens_on_card_and_cpu(cuda, arch,
     assert torch.equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("arch,heads,head_dim", [
+    ("musicgen-large", None, None), ("phi-3-vision-4.2b", None, 96),
+    ("nemotron-4-340b", 12, 192)])
+def test_reduced_dense_and_frontend_configs_match_the_cpu(cuda, arch, heads,
+                                                          head_dim):
+    """The plain MLP (musicgen-large, nemotron-4-340b) and the frontends,
+    reduced, fp32 weights, at the real head width and G where given: the
+    same greedy tokens on the card and the CPU, every product a
+    tiered_matmul launch (4 attention products and 2 or 3 of the MLP a
+    layer), and ``forward`` with frontend embeddings within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(arch).reduced()
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=1)
+    if head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    cpu, gpu = (lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=d, dtype=torch.float32)
+                for d in ("cpu", "cuda"))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(1))
+    outs = []
+    for d, p in (("cpu", cpu), ("cuda", gpu)):
+        ops.reset_launch_counts()
+        outs.append(ServeEngine(cfg, p, max_seq=32, batch=2, device=d)
+                    .generate(prompts, 5).cpu())
+    mlp = 2 if cfg.mlp_type == "mlp" else 3
+    assert ops.launch_counts()["tiered_matmul"] == (4 + mlp) * 2 * 11
+    assert torch.equal(outs[0], outs[1])
+    n_front = cfg.frontend_tokens
+    fe = torch.randn((2, n_front, cfg.d_model),
+                     generator=torch.Generator().manual_seed(2))
+    toks = torch.randint(0, cfg.vocab_size, (2, 300),
+                         generator=torch.Generator().manual_seed(3))
+    want, _ = lm.forward(cpu, cfg, toks, fe if n_front else None)
+    got, _ = lm.forward(gpu, cfg, toks.cuda(),
+                        fe.cuda() if n_front else None)
+    assert got.shape == (2, n_front + 300, cfg.vocab_size)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
 def _objects(core, sizes):
     objs, golden = {}, {}
     g = torch.Generator().manual_seed(0)
@@ -373,12 +448,20 @@ FLASH_CASES = [
     (1, 2, 16, 256, 384, 128, False),
     # dbrx-132b's G 6 at D 128
     (1, 2, 6, 300, 300, 128, True), (1, 2, 6, 256, 384, 128, False),
-    (2, 8, 6, 256, 256, 128, True)]
+    (2, 8, 6, 256, 256, 128, True),
+    # phi-3-vision-4.2b's D 96 (the D 128 instantiation, a quarter of each
+    # tile's columns past D) over 2048 + 144 patch positions (the last key
+    # tile ragged); nemotron-4-340b's G 12 at D 192 (the D 256 one, its
+    # last 64-wide box wholly past D), causal and not
+    (1, 4, 1, 2192, 2192, 96, True), (1, 4, 1, 300, 300, 96, False),
+    (1, 2, 12, 300, 300, 192, True), (1, 2, 12, 256, 384, 192, False)]
 # q x 8: peaked scores, the running max moves between key tiles; bf16
 # only (chip_smoke.PEAKED_DTYPES says why)
 FLASH_PEAKED = [(1, 1, 8, 300, 300, 256, True), (1, 32, 1, 512, 512, 64, True),
                 (1, 2, 16, 300, 300, 128, True),
-                (1, 2, 6, 300, 300, 128, True)]
+                (1, 2, 6, 300, 300, 128, True),
+                (1, 4, 1, 2192, 2192, 96, True),
+                (1, 2, 12, 300, 300, 192, True)]
 
 
 @pytest.mark.parametrize(
