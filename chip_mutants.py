@@ -28,6 +28,19 @@ command line run those mutants only.  The mutants:
   read), ``running_max_rescale_dropped`` (acc and l are never rescaled
   when the running max grows), ``uncopied_chunks_read`` (a lane's chunks
   past D, which no cp.async wrote, are read from the ring as if copied);
+- decode attention at the main path's longest reads (gemma-2b's and
+  chatglm3-6b's decode_32k shapes over an e4m3 cache, zamba2-1.2b's
+  long_500k over a bf16 one, fp32 and bf16 q; the bf16 rows also against
+  float64): ``merge_split_dropped`` (the merge leaves the second split's
+  partial out of the output, its weight still in the normaliser);
+- decode attention's e4m3 route (its checks: gemma-2b's serving shape
+  and the other configs' G and D, lengths 0 and 1, the NaN encoding inside
+  and past the valid rows, behind a NaN fill of shared memory, and the C
+  entry point refusing rows of 8 and 24 bytes): ``e4m3_bias_off_by_one``
+  (the decode's exponent bias 8 where e4m3 has 7: every value halved),
+  ``e4m3_nan_decoded_as_number`` (S.1111.111 decoded as +-480, not NaN),
+  ``e4m3_element_size_2`` (the launcher takes an e4m3 element for 2
+  bytes, as the bf16 route's, and launches on rows it cannot read);
 - SSD-scan backward (the SSD checks with decays near 1, and those behind
   a NaN fill of shared memory): ``dloga_inter_chunk_dropped`` (the term
   X_i = e^{cum_i} q_i . S dy_i of d(log a), which carries the state from
@@ -111,6 +124,19 @@ MUTANTS = {
     "uncopied_chunks_read": (
         DECODE, "      if (li + lanes * j < c16) {", "      if (true) {",
         "decode"),
+    "merge_split_dropped": (
+        DECODE, "      if (s < n_split) {", "      if (s < n_split && s != 1) {",
+        "decode_long"),
+    "e4m3_bias_off_by_one": (
+        DECODE, "constexpr uint32_t kE4m3Bias = 7;",
+        "constexpr uint32_t kE4m3Bias = 8;", "decode_e4m3"),
+    "e4m3_nan_decoded_as_number": (
+        DECODE,
+        "  return (b & 0x7Fu) == 0x7Fu ? __uint_as_float(0x7FC00000u) : x;",
+        "  return x;", "decode_e4m3"),
+    "e4m3_element_size_2": (
+        DECODE, "    case 2: return 1;", "    case 2: return 2;",
+        "decode_e4m3"),
     "dloga_inter_chunk_dropped": (
         SSD_BWD, "      if (J == 0)\n        f += (double)ecum[I * kT + x]",
         "      if (false)\n        f += (double)ecum[I * kT + x]", "ssd_bwd"),
@@ -229,6 +255,31 @@ for n in (160, 1024):
 for r in cs._stale_shared_cases(gen):
     print(json.dumps(dict(case="stale NaN " + str(r["shape"]), ok=r["ok"],
                           err=r["max_abs_err"])), flush=True)
+''',
+    # chip_smoke.py's e4m3 check cases, untimed: the NaN encoding, behind
+    # a NaN fill of shared memory, and the C entry point's refusals
+    "decode_e4m3": _HEAD + r'''
+rows = [cs._decode_case(None, dt, B, K, G, D, T, n, True, gen, kv=cs.E4M3)
+        for dt, B, K, G, D, T, n, _ in cs.E4M3_CASES]
+rows += [cs._decode_case(None, torch.bfloat16, 4, 1, 8, 256, 1024, 160, True,
+                         gen, kv=cs.E4M3, nan=w) for w in ("inside", "past")]
+rows += [cs._decode_case(None, dt, B, K, G, D, 1024, n, True, gen,
+                         stale_nan=True, kv=cs.E4M3)
+         for dt, B, K, G, D, n in cs.E4M3_STALE_CASES]
+rows += [cs._e4m3_launcher_refuses(D) for D in (8, 24)]
+for r in rows:
+    print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
+                          err=r["max_abs_err"])), flush=True)
+''',
+    # chip_smoke.py's decode cases at the main path's longest reads,
+    # untimed; "plain_ok" is the verdict against the plain version alone
+    "decode_long": _HEAD + r'''
+for r in cs._long_decode_cases(None, gen):
+    print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
+                          err=r["max_abs_err"],
+                          plain_ok=r.get("plain_ok", r["ok"]),
+                          err64=r.get("float64_max_abs_err"),
+                          limit64=r.get("float64_limit"))), flush=True)
 ''',
     # chip_smoke.py's tiered_matmul check cases, untimed: the reference
     # tests' shapes and the serving products in both dtypes, the edge

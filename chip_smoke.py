@@ -44,7 +44,22 @@ result line) if any phase fails:
                backward also behind a NaN fill of shared memory;
                tiered_matmul with the route and plan each shape took, the
                same bits from a second call, and the wrapper's host time a
-               call;
+               call; decode attention's e4m3 route (an fp8 cache) at
+               gemma-2b's serving shape with fp32 and bf16 q, at zamba2's,
+               chatglm3-6b's, dbrx-132b's and nemotron's G and D, at
+               lengths 0 and 1, with the NaN encoding inside and past the
+               valid rows, behind a NaN fill of shared memory, and the C
+               entry point refusing rows it cannot read; decode attention
+               at the main path's longest reads (both full decode_32k
+               shapes the dry run serves in e4m3, gemma-2b's and
+               chatglm3-6b's over 32,768 rows, and zamba2-1.2b's long_500k
+               over 524,288 bf16 rows), fp32 q at TOL[fp32] and bf16 q
+               also against float64 within 2^-7 of the largest output;
+               tiered_matmul at M = 128 on gemma-2b's, chatglm3-6b's and
+               xlstm-350m's decode products and at M = 1 on the long_500k
+               cells' (zamba2-1.2b's and xlstm-350m's); and what
+               the card's own cast to e4m3 gives at the range's edges, with
+               ``kv_cast`` the same bits on the card as on the CPU;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -57,11 +72,19 @@ result line) if any phase fails:
                at their real head widths (D 96 and 192), xlstm-350m also at
                one head (N 128, P 129: the SSD forward's wide route); the
                two frontend configs also through ``forward`` with their
-               frontend embeddings;
+               frontend embeddings; gemma-2b, chatglm3-6b at G 16 and
+               zamba2-1.2b also with an e4m3 KV cache, and one decode
+               step's attribution (the same PhaseSample on both devices);
 6. sim      -- the discrete-event simulator on the card's host: the
                quickstart's CG workload DRAM-only, NVM-only and under
                Unimem, twice (same plan digest and iteration times), and
                the planner's wall time on each (re)plan;
+6b. dryrun  -- ``launch/dryrun.py``'s fit prediction of every (config x
+               decode shape) cell, then each cell predicted to fit run at
+               full width and depth (gemma-2b and chatglm3-6b decode_32k
+               in e4m3, zamba2-1.2b long_500k in bf16, xlstm-350m both)
+               with its attribution, a profile of its steps and its
+               roofline row (``launch/roofline.py``);
 7. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
                served under the runtime, with every kernel launch counted;
 8. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
@@ -106,7 +129,8 @@ result line) if any phase fails:
                tokens, at full width); nemotron-4-340b (G 12, D 192, the
                plain squared-ReLU MLP of 73728) cut to 6 of its 96 layers
                (682 GB of weights fit no tier) served as gemma-2b is;
-16. kernels -- one line with each kernel's numbers.
+16. kernels -- one line with each kernel's numbers (the e4m3 route as
+               ``decode_attention_e4m3``).
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
@@ -151,9 +175,12 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch import _tree, sim  # noqa: E402
 from repro_torch.core import (H100_HBM_HOST, PAPER_DRAM_NVM,  # noqa: E402
-                              ManualSource, ObjectRegistry, RuntimeConfig,
-                              UnimemRuntime, calibrate)
+                              ManualSource, ObjectRegistry,
+                              OperandAttributionSource, RuntimeConfig,
+                              Session, UnimemRuntime, calibrate)
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -161,7 +188,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.ref import decode_attention_f64  # noqa: E402
 from repro_torch.kernels import tiered_matmul as mm  # noqa: E402
 from repro_torch.models import lm, moe, xlstm  # noqa: E402
-from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models.common import E4M3, kv_cast, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -172,7 +199,7 @@ from repro_torch.train.step import (build_grads_step,  # noqa: E402
 MB = 1024 ** 2
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BW = 3.35e12
-PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12, E4M3: 1979e12}
 TF32_PEAK = 495e12          # dense TF32 on the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 # The backward in fp32: dk and dv sum over G*S stacked rows (16,384 at the
@@ -230,11 +257,26 @@ MOE_DECODE_TOL = 1e-3
 # to bf16 moves the CPU's own logits (bf16 against fp32 cache, the same
 # steps): an ulp apart in a few cached values moves them less than
 # rounding every one of them does
+# The e4m3 cache (the dry run's decode_32k cells) on reduced gemma-2b,
+# chatglm3-6b at its real G 16 and zamba2-1.2b, the card against the CPU:
+# the logits are held to PARITY_TOL (zamba2's with its conv window in fp32
+# on both sides; with the bf16 window, to ZAMBA_DECODE_TOL as its bf16
+# cache is).  Beside it stands the distance that rounding the whole cache
+# to e4m3 moves the CPU's own logits (e4m3 against fp32 cache), which must
+# be at least E4M3_ROUNDING_FLOOR: a card that kept the cache in fp32 or
+# bf16 would lie about that far from the CPU and fail.  One decode step's
+# attribution must be the same PhaseSample on both devices.  (arch, heads)
+E4M3_PARITY = {("gemma-2b", None), ("chatglm3-6b", 16), ("zamba2-1.2b", None)}
+E4M3_ROUNDING_FLOOR = 100 * PARITY_TOL
 KV_ROUNDING_ARCHS = ("musicgen-large", "phi-3-vision-4.2b",
                      "nemotron-4-340b")
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
+    # the e4m3 route of the same kernel: the TPU kernel takes an e4m3
+    # cache and casts it to fp32 (decode_attention.py:42-43)
+    "decode_attention_e4m3": ("src/repro_torch/csrc/decode_attention.cu",
+                              "src/repro/kernels/decode_attention.py:65"),
     "tiered_matmul": ("src/repro_torch/csrc/tiered_matmul.cu",
                       "src/repro/kernels/tiered_matmul.py:50"),
     # a route of the same kernel: the reference computes the experts'
@@ -492,20 +534,38 @@ def _compare(out, plain, dtype, tol=TOL):
 
 
 def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen,
-                 peak=1.0, against="plain", stale_nan=False):
+                 peak=1.0, against="plain", stale_nan=False, kv=None,
+                 nan=None, f64_rel=None):
     """The kernel against its plain version (``against="plain"``) or the
     same attention in float64 (``"float64"``), on q scaled by ``peak``
     (8: peaked scores, so the running max moves between tiles); with
     ``stale_nan``, every SM's shared memory is filled with NaN just before
     the kernel, so a read of shared memory it did not write shows; timed
-    beside the plain version and SDPA unless ``timer`` is None."""
+    beside the plain version and SDPA unless ``timer`` is None.  ``kv``:
+    the cache's dtype (q's unless given); an e4m3 cache (``E4M3``, drawn
+    N(0, 1) and cast by ``kv_cast``) makes the row kernel
+    ``decode_attention_e4m3``, its library column None (no PyTorch call
+    reads e4m3) and ``library_bf16_sdpa_ms`` SDPA over the same cache in
+    bf16, for scale.  ``nan`` (an e4m3 cache): the NaN encoding written
+    into one cache element of batch 0 inside the valid rows
+    (``"inside"``: batch 0's outputs NaN in both, compared NaN for NaN) or
+    past them (``"past"``: never read).  ``f64_rel``: the output is also
+    held against the same attention in float64, within ``f64_rel`` times
+    its largest magnitude (``float64_max_abs_err``, ``float64_limit``;
+    ``plain_ok`` keeps the verdict against the plain version alone)."""
+    kv = kv or dtype
+
+    def draw(shape):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return kv_cast(x, kv)
     if cache_view:      # one layer of the serving cache, (B, T, K, D)
-        kc = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
-        vc = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
+        kc, vc = draw((B, T, K, D)), draw((B, T, K, D))
         k, v = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
     else:
-        k = torch.randn((B, K, T, D), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((B, K, T, D), generator=gen, device="cuda").to(dtype)
+        k, v = draw((B, K, T, D)), draw((B, K, T, D))
+    if nan is not None:                   # e4m3's NaN, S.1111.111
+        row = length // 2 if nan == "inside" else length + (T - length) // 2
+        k.view(torch.uint8)[0, 0, row, 0] = 0x7F
     q = (torch.randn((B, K, G, D), generator=gen, device="cuda")
          * peak).to(dtype)
     if stale_nan:
@@ -516,26 +576,73 @@ def _decode_case(timer, dtype, B, K, G, D, T, length, cache_view, gen,
     else:
         want = decode_attention_plain(q, k, v, length)
     torch.cuda.synchronize()
-    err, ok = _compare(out, want, dtype)
+    e4m3 = kv == E4M3
+    if nan is None:
+        err, ok = _compare(out, want, dtype)
+    else:               # NaN where the plain version has NaN, else close
+        same_nan = torch.equal(out.isnan(), want.isnan())
+        fin = ~want.isnan()
+        err, ok = _compare(out[fin], want[fin], dtype)
+        ok = ok and same_nan and bool(want.isnan().any()) == (nan == "inside")
     row = dict(
-        phase="check", kernel="decode_attention", dtype=str(dtype)[6:],
+        phase="check",
+        kernel="decode_attention_e4m3" if e4m3 else "decode_attention",
+        dtype=str(dtype)[6:],
         shape=dict(B=B, K=K, G=G, D=D, T=T, length=length,
-                   cache_view=cache_view, peak=peak, stale_nan=stale_nan),
+                   cache_view=cache_view, peak=peak, stale_nan=stale_nan,
+                   kv=str(kv)[6:], nan=nan),
         against=against, max_abs_err=err, tol=TOL[dtype], ok=ok)
+    if f64_rel is not None:
+        del want
+        err64, top = _f64_distance(out, q, k, v, length)
+        row.update(float64_max_abs_err=err64, float64_limit=f64_rel * top,
+                   plain_ok=ok, ok=ok and err64 <= f64_rel * top)
+        torch.cuda.empty_cache()
     if timer is None:
         return row
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * B * K * G * D + 2 * B * K * length * D) * size
+    kv_size = k.element_size()
+    nbytes = 2 * B * K * G * D * size + 2 * B * K * length * D * kv_size
     row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes, 4.0 * B * K * G * length * D, dtype)
+        nbytes, 4.0 * B * K * G * length * D, kv if e4m3 else dtype)
     row["library_ms"] = None
-    if length:
-        kl, vl = k[:, :, :length], v[:, :, :length]
+    kl, vl = k[:, :, :length], v[:, :, :length]
+    if e4m3 and length:
+        q16 = q.to(torch.bfloat16)
+        k16, v16 = kl.to(torch.bfloat16), vl.to(torch.bfloat16)
+        row["library"] = ("none: no PyTorch call reads an e4m3 cache; "
+                          "library_bf16_sdpa_ms is SDPA over the same cache "
+                          "in bf16, for scale")
+        row["library_bf16_sdpa_ms"] = timer(
+            lambda: F.scaled_dot_product_attention(q16, k16, v16))
+        row["library_bf16_bound_ms"] = bound_ms(
+            2 * B * K * G * D * 2 + 2 * B * K * length * D * 2,
+            4.0 * B * K * G * length * D, torch.bfloat16)[0]
+        del q16, k16, v16
+    elif length:
         row["library_ms"] = timer(
             lambda: F.scaled_dot_product_attention(q, kl, vl))
     row["ms"] = timer(lambda: ops.decode_attention(q, k, v, length))
     row["plain_ms"] = timer(lambda: decode_attention_plain(q, k, v, length))
     return row
+
+
+def _f64_distance(out, q, k, v, length, elems=1 << 28):
+    """max |out - attention in float64| and max |attention in float64|,
+    the float64 version taken over slices of (b, KV heads) that read at
+    most ``elems`` cache elements each, so a full cache of the main path's
+    longest reads fits beside it."""
+    B, K, D = q.shape[0], q.shape[1], q.shape[3]
+    step = max(1, elems // max(1, length * D))
+    err = top = 0.0
+    for b in range(B):
+        for h in range(0, K, step):
+            sl = (slice(b, b + 1), slice(h, h + step))
+            want = decode_attention_f64(q[sl], k[sl], v[sl], length)
+            err = max(err, (out[sl].double() - want).abs().max().item())
+            top = max(top, want.abs().max().item())
+            del want
+    return err, top
 
 
 # Decode shapes whose lanes own 16-byte chunks past D, which the kernel
@@ -558,6 +665,122 @@ def _stale_shared_cases(gen) -> list:
     return [_decode_case(None, dt, B, K, G, D, 1024, length, True, gen,
                          stale_nan=True)
             for dt, B, K, G, D, length in STALE_SHARED_CASES]
+
+
+# The e4m3 route's checks, (q dtype, B, K, G, D, T, length, timed):
+# gemma-2b's serving shape (cache view (4, 1024, 1, 256)) and lengths 0, 1,
+# 1024; zamba2-1.2b's G 1, D 64 (K 32), chatglm3-6b's G 16, D 128, dbrx-
+# 132b's G 6 and nemotron-4-340b's G 12, D 192, at lengths 1, 160, 1024;
+# both full decode_32k shapes the dry run serves in e4m3, gemma-2b's (B
+# 128, K 1, G 8, D 256) and chatglm3-6b's (B 128, K 2, G 16, D 128) over
+# all 32,768 rows (LONG_DECODE_CASES)
+E4M3_CASES = [
+    *((dt, 4, 1, 8, 256, 1024, n, n == 160)
+      for dt in (torch.float32, torch.bfloat16) for n in (0, 1, 160, 1024)),
+    *((dt, 4, K, G, D, 1024, n, False)
+      for dt in (torch.float32, torch.bfloat16)
+      for K, G, D in ((32, 1, 64), (2, 16, 128), (8, 6, 128), (8, 12, 192))
+      for n in (1, 160, 1024))]
+# The main path's longest reads, at the dry run's shapes: gemma-2b's (B
+# 128, K 1, G 8, D 256) and chatglm3-6b's (B 128, K 2, G 16, D 128)
+# decode_32k over all 32,768 rows of an e4m3 cache, and zamba2-1.2b's
+# long_500k (B 1, K 32, G 1, D 64) over all 524,288 rows of a bf16 cache.
+# Over T rows of N(0, 1) keys and values an output is about sqrt(e / T)
+# (0.009 at 32,768 rows, 0.0023 at 524,288), under TOL[bf16], so a kernel
+# that lost a split's partial would pass at TOL[bf16] alone: fp32 q is held
+# to TOL[fp32] (an e4m3 or bf16 value dequantizes exactly, so the plain
+# version differs only in summation order), and bf16 q also against float64
+# within 2^-7 of the largest output (LONG_F64_REL; rounding the output to
+# bf16 moves it at most 2^-8 of that).  (q dtype, kv dtype, B, K, G, D,
+# length, timed)
+LONG_DECODE_CASES = [
+    *((dt, E4M3, 128, K, G, D, 32768, dt == torch.bfloat16)
+      for K, G, D in ((1, 8, 256), (2, 16, 128))
+      for dt in (torch.float32, torch.bfloat16)),
+    (torch.float32, torch.bfloat16, 1, 32, 1, 64, 524288, False),
+    (torch.bfloat16, torch.bfloat16, 1, 32, 1, 64, 524288, True)]
+LONG_F64_REL = 2.0 ** -7
+# e4m3 shapes behind a NaN fill of shared memory: lanes with 16-byte chunks
+# past D (D 96: 6 chunks in 8 lanes; 160: 10 in 16; 192: 12 in 16) and one
+# chunk a row (D 16).  (q dtype, B, K, G, D, length)
+E4M3_STALE_CASES = [
+    (torch.bfloat16, 2, 2, 4, 96, 161), (torch.float32, 2, 2, 4, 160, 33),
+    (torch.bfloat16, 4, 8, 12, 192, 161), (torch.float32, 4, 32, 1, 64, 160),
+    (torch.bfloat16, 2, 1, 8, 16, 37), (torch.float32, 2, 2, 16, 128, 161)]
+
+
+def _e4m3_launcher_refuses(D: int) -> dict:
+    """The C entry point itself refuses an e4m3 row of D * 1 bytes that is
+    no multiple of 16 (cudaErrorInvalidValue, 1), with nothing launched:
+    its element size comes from the dtype code."""
+    q = torch.zeros((1, 1, 4, D), device="cuda")
+    k = torch.zeros((1, 1, 64, D), dtype=E4M3, device="cuda")
+    before = da.e4m3_launches
+    err = da._bind()(q.data_ptr(), k.data_ptr(), k.data_ptr(), q.data_ptr(),
+                     1, 1, 4, D, 64, 1, 64, 4, 0, 1.0,
+                     *q.stride()[:3], *k.stride()[:3], *k.stride()[:3],
+                     *q.stride()[:3], 0, 2,
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return dict(phase="check", kernel="decode_attention_e4m3",
+                dtype="float32",
+                shape=dict(launcher_refuses_D=D, kv="float8_e4m3fn"),
+                cuda_error=err, max_abs_err=0.0, tol=0.0,
+                ok=err == 1 and da.e4m3_launches == before)
+
+
+def _e4m3_cases(timer, gen) -> list:
+    rows = [_decode_case(timer if timed else None, dt, B, K, G, D, T, n,
+                         True, gen, kv=E4M3)
+            for dt, B, K, G, D, T, n, timed in E4M3_CASES]
+    torch.cuda.empty_cache()
+    rows += [_decode_case(None, torch.bfloat16, 4, 1, 8, 256, 1024, 160,
+                          True, gen, kv=E4M3, nan=where)
+             for where in ("inside", "past")]
+    rows += [_decode_case(None, dt, B, K, G, D, 1024, n, True, gen,
+                          stale_nan=True, kv=E4M3)
+             for dt, B, K, G, D, n in E4M3_STALE_CASES]
+    rows += [_e4m3_launcher_refuses(D) for D in (8, 24)]
+    return rows
+
+
+def _long_decode_cases(timer, gen) -> list:
+    """The decode kernel at LONG_DECODE_CASES, each case's caches freed
+    before the next."""
+    rows = []
+    for dt, kv, B, K, G, D, n, timed in LONG_DECODE_CASES:
+        rows.append(_decode_case(
+            timer if timed else None, dt, B, K, G, D, n, n, True, gen,
+            kv=kv, f64_rel=LONG_F64_REL if dt == torch.bfloat16 else None))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_e4m3_cast() -> dict:
+    """What the card's own ``.to(float8_e4m3fn)`` gives at the edges of the
+    range, and ``kv_cast`` (the port's one conversion) giving the same
+    bits on the card as on the CPU, for 10^5 N(0, 3^2) values and the
+    edges."""
+    edges = torch.tensor([448.0, 449.0, 463.9, 464.0, 464.5, 480.0, 1e4,
+                          float("inf"), -float("inf"), float("nan"),
+                          2.0 ** -10, 3 * 2.0 ** -11, -0.0])
+    raw = edges.cuda().to(E4M3).view(torch.uint8).cpu().tolist()
+    x = torch.cat([torch.randn(100_000, generator=torch.Generator()
+                               .manual_seed(7)) * 3.0, edges])
+    bits = {}
+    for src in (torch.float32, torch.bfloat16):
+        cpu = kv_cast(x.to(src), E4M3).view(torch.uint8)
+        card = kv_cast(x.to(src).cuda(), E4M3).view(torch.uint8).cpu()
+        bits[str(src)[6:]] = int((cpu != card).sum())
+    res = dict(phase="e4m3_cast", values=[str(v) for v in edges.tolist()],
+               card_raw_cast_bits=raw,
+               card_raw_cast_values=[str(v) for v in torch.tensor(
+                   raw, dtype=torch.uint8).view(E4M3).float().tolist()],
+               kv_cast_card_vs_cpu_bits_apart=bits)
+    emit(res)
+    require(not any(bits.values()), "kv_cast gives the same bits on the card "
+            "and the CPU")
+    return res
 
 
 def _host_us(fn, n: int = 1000) -> float:
@@ -1154,6 +1377,31 @@ def _xlstm_products(cfg) -> list:
             ("slstm_out_proj", d, d)]
 
 
+def _m128_products() -> list:
+    """(label, K, N) of the decode products that the dry run's
+    decode_32k cells run at M = 128: gemma-2b's and chatglm3-6b's 7 a
+    layer, xlstm-350m's 5."""
+    return [(f"m128:{arch}:{name}", K, N)
+            for arch, products in (
+                ("gemma-2b", _layer_products(get_config("gemma-2b"))),
+                ("chatglm3-6b", _layer_products(get_config("chatglm3-6b"))),
+                ("xlstm-350m", _xlstm_products(get_config("xlstm-350m"))))
+            for name, K, N in products]
+
+
+def _m1_products() -> list:
+    """(label, K, N) of the decode products that the dry run's long_500k
+    cells run at M = 1: zamba2-1.2b's Mamba-2 in_proj and out_proj and its
+    shared block's 7, xlstm-350m's 5."""
+    zcfg = get_config("zamba2-1.2b")
+    _, zamba = _path_products()
+    return [(f"m1:{arch}:{name}", K, N)
+            for arch, products in (
+                ("zamba2-1.2b", zamba[:2] + _layer_products(zcfg)),
+                ("xlstm-350m", _xlstm_products(get_config("xlstm-350m"))))
+            for name, K, N in products]
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
@@ -1285,6 +1533,16 @@ def phase_check(timer) -> list:
     rows += _stale_shared_cases(gen)
     rows += _matmul_edge_cases(gen)
     rows += _experts_cases(timer, gen)
+    # the e4m3 route, and the decode products at M = 128 (a decode_32k
+    # cell's batch): gemma-2b's and chatglm3-6b's 7 a layer and xlstm-
+    # 350m's 5, bf16, as the dry run's cells run them
+    rows += _e4m3_cases(timer, gen)
+    rows += _long_decode_cases(timer, gen)
+    rows += [_matmul_case(timer, torch.bfloat16, 128, K, N, gen, label)
+             for label, K, N in _m128_products()]
+    # the long_500k cells' decode products at M = 1 (batch 1), bf16
+    rows += [_matmul_case(timer, torch.bfloat16, 1, K, N, gen, label)
+             for label, K, N in _m1_products()]
     for r in rows:
         if r["kernel"] == "decode_attention" and "ms" in r:
             r["launch_floor_ms"] = floor_ms
@@ -1477,19 +1735,36 @@ def _decode_errors(cfg, cpu, gpu, prompts, S, window=None,
     return out
 
 
-def _kv_rounding(cfg, params, prompts, S) -> float:
+def _kv_rounding(cfg, params, prompts, S, kv=torch.bfloat16) -> float:
     """Largest distance, on the CPU, between the logits of one decode step
-    per prompt token with a bf16 KV cache and with an fp32 one: how far
-    rounding the cache to bf16 moves the logits."""
+    per prompt token with a ``kv`` (bf16 or e4m3) KV cache and with an fp32
+    one: how far rounding the cache to ``kv`` moves the logits."""
     B, P = prompts.shape
-    caches = [lm.init_cache(cfg, B, S, device="cpu", kv_dtype=kv)
-              for kv in (torch.bfloat16, torch.float32)]
+    caches = [lm.init_cache(cfg, B, S, device="cpu", kv_dtype=d)
+              for d in (kv, torch.float32)]
     err = 0.0
     for i in range(P):
         a, b = (lm.decode_step(params, cfg, c, prompts[:, i], i)
                 for c in caches)
         err = max(err, (a - b).abs().max().item())
     return err
+
+
+def _attribution(cfg, params, prompts, S, device: str):
+    """The attribution (OperandAttributionSource, 64 bins) of the fourth
+    decode step over an e4m3 cache, after three, on ``device``."""
+    B = prompts.shape[0]
+    toks = prompts.to(device)
+    cache = lm.init_cache(cfg, B, S, device=device, kv_dtype=E4M3)
+    for p in range(3):
+        lm.decode_step(params, cfg, cache, toks[:, p], p)
+    sess = Session(H100_HBM_HOST)
+    sess.register("params", params)
+    sess.register("kv_cache", cache, chunkable=True)
+    src = OperandAttributionSource(sess)
+    with src.record("step"):
+        lm.decode_step(params, cfg, cache, toks[:, 3], 3)
+    return src.collect("step")
 
 
 def phase_parity(arch: str, heads: int = None, head_dim: int = None
@@ -1549,6 +1824,25 @@ def phase_parity(arch: str, heads: int = None, head_dim: int = None
     if cfg.is_moe or kv_rounding:
         res["decode_fp32_kv_logits_max_abs_err"] = _decode_errors(
             cfg, cpu, gpu, prompts, S, kv=torch.float32)["logits"]
+    e4m3 = (arch, heads) in E4M3_PARITY and head_dim is None
+    if e4m3:
+        rounding = _kv_rounding(cfg, cpu, prompts, S, kv=E4M3)
+        a, b = (_attribution(cfg, p, prompts, S, d)
+                for p, d in ((cpu, "cpu"), (gpu, "cuda")))
+        res["e4m3"] = dict(
+            logits_max_abs_err=_decode_errors(
+                cfg, cpu, gpu, prompts, S,
+                torch.float32 if hybrid else None, kv=E4M3)["logits"],
+            tol=PARITY_TOL, cpu_e4m3_kv_rounding=rounding,
+            rounding_floor=E4M3_ROUNDING_FLOOR,
+            attribution_same=a.accesses == b.accesses
+            and a.access_bins == b.access_bins,
+            attribution_accesses=a.accesses)
+        if hybrid:
+            res["e4m3"]["window"] = "float32"
+            res["e4m3"]["bf16_window_logits_max_abs_err"] = _decode_errors(
+                cfg, cpu, gpu, prompts, S, kv=E4M3)["logits"]
+            res["e4m3"]["bf16_window_tol"] = ZAMBA_DECODE_TOL
     if xlstm:
         d_in = cfg.ssm_expand * cfg.d_model
         res["mlstm_state"] = dict(N=d_in // cfg.n_heads,
@@ -1576,6 +1870,19 @@ def phase_parity(arch: str, heads: int = None, head_dim: int = None
     emit(res)
     require(same, "greedy tokens identical on card and CPU")
     require(res["logits_max_abs_err"] <= res["tol"], "logits within tolerance")
+    if e4m3:
+        require(res["e4m3"]["logits_max_abs_err"] <= PARITY_TOL,
+                "with an e4m3 cache, decode logits within PARITY_TOL")
+        require(rounding >= E4M3_ROUNDING_FLOOR,
+                "rounding the cache to e4m3 moves the CPU's logits at "
+                "least E4M3_ROUNDING_FLOOR, so the parity check sees a "
+                "cache kept wider than e4m3")
+        if hybrid:
+            require(res["e4m3"]["bf16_window_logits_max_abs_err"]
+                    <= ZAMBA_DECODE_TOL, "with an e4m3 cache and the bf16 "
+                    "conv window, decode logits within ZAMBA_DECODE_TOL")
+        require(res["e4m3"]["attribution_same"], "a decode step's "
+                "attribution is the same PhaseSample on the card and the CPU")
     if hybrid:
         require(all(e <= PARITY_TOL for e in
                     res["decode_fp32_window_max_abs_err"].values()),
@@ -1953,6 +2260,77 @@ def phase_serve(arch: str, name: str, layers: int = None) -> dict:
     return res
 
 
+#: the cells the dry run's fit loop must run on an H100 80GB: (cell, the
+#: KV cache dtype it must choose)
+DRYRUN_MUST_RUN = {"gemma-2b|decode_32k|1xH100": "float8_e4m3fn"}
+
+
+def _dryrun_expected(cfg, rec) -> dict:
+    """Kernel launches of one decode step of a dry-run cell: as a serve
+    path's (``_expected_launches``), the decode attention on the e4m3
+    route over an e4m3 cache."""
+    counts = _expected_launches(cfg, "serve", 1)
+    if rec["kv_dtype"] == "float8_e4m3fn":
+        counts["decode_attention_e4m3"] = counts.pop("decode_attention")
+        counts["decode_attention"] = 0
+    return {k: float(n) for k, n in counts.items() if n}
+
+
+def phase_dryrun() -> list:
+    """The dry run's decode cells (``launch/dryrun.py``): the fit
+    prediction of every (config x decode shape) cell, then each cell
+    predicted to fit run at full width and depth with ``--attribution``,
+    its steps profiled, and its roofline row.  Each run cell is a path:
+    its launches counted from 0 just before its timed steps.  The run
+    fails if a cell predicted to fit does not run, its measured peak
+    passes the prediction, its logits are not finite, or a step's
+    launches differ from a serve step's."""
+    _free()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    cells = [(a, s) for a in sorted(dryrun.ARCHS)
+             for s in dryrun.DECODE_SHAPES]
+    preds = [dryrun.run_cell(a, s, hbm_bytes=hbm, predict_only=True)
+             for a, s in cells]
+    emit(dict(phase="dryrun_fit", hbm_bytes=hbm, cells=[
+        {k: r.get(k) for k in ("cell", "status", "kv_dtype", "fits_hbm",
+                               "memory", "reason")} for r in preds]))
+    paths = []
+    for (a, s), pred in zip(cells, preds):
+        if pred["status"] != "ok" or not pred["fits_hbm"]:
+            continue
+        _free()
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(
+            a, s, hbm_bytes=hbm, attribution=True,
+            profile=lambda run, steps, wall: _device_profile(
+                run, steps, wall, SERVE_GROUPS))
+        rec["seconds"] = time.perf_counter() - t0
+        rec["roofline"] = roofline.analyze(rec)
+        cfg = get_config(a)
+        expect = _dryrun_expected(cfg, rec)
+        emit(dict(phase="dryrun", **rec))
+        mem = rec["memory"]
+        require(rec["ran"] and rec["kv_dtype"] == pred["kv_dtype"],
+                f"{rec['cell']} predicted to fit ran as predicted")
+        require(mem["measured_peak_bytes"] <= mem["peak_bytes"],
+                f"{rec['cell']}: measured peak {mem['measured_peak_bytes']} "
+                f"within the prediction {mem['peak_bytes']}")
+        require(rec["logits_finite"]
+                and rec["logits_shape"] == [rec["batch"], cfg.vocab_size],
+                f"{rec['cell']}: finite logits (batch, vocab)")
+        require(rec["launches_per_step"] == expect,
+                f"{rec['cell']}: launches a step {rec['launches_per_step']} "
+                f"== {expect}")
+        paths.append(dict(phase="dryrun:" + rec["cell"],
+                          launches=rec["launches"]))
+    ran = {p["phase"][len("dryrun:"):] for p in paths}
+    for cell, kv in DRYRUN_MUST_RUN.items():
+        pred = next(r for r in preds if r["cell"] == cell)
+        require(cell in ran and pred["kv_dtype"] == kv,
+                f"{cell} runs with its {kv} cache")
+    return paths
+
+
 def phase_train(arch: str, S: int, name: str, layers: int = None,
                 lr: float = 3e-4, rerun: bool = False,
                 profile_steps: int = 2) -> dict:
@@ -2271,6 +2649,13 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
                   and s["cache_view"] and s["length"] == 160
                   and s["D"] == 256),
              "one bf16 call, batch 4, length 160, cache view (4,1024,1,256)"),
+            ("decode_attention_e4m3",
+             [r for r in pick("decode_attention_e4m3", lambda dt, s:
+                              dt == "bfloat16" and s.get("B") == 128
+                              and s["D"] == 256) if "ms" in r],
+             "one call, bf16 q over an e4m3 cache, at gemma-2b's "
+             "decode_32k shape: batch 128, all 32,768 rows of the cache "
+             "view (128,32768,1,256)"),
             ("tiered_matmul",
              pick("tiered_matmul", lambda dt, s: dt == "bfloat16"
                   and s["product"] in gemma),
@@ -2300,7 +2685,15 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
             row[key] = sum(r[key] for r in rows)
         libs = [r["library_ms"] for r in rows]
         row["library_ms"] = None if None in libs else sum(libs)
-        if row["library_ms"] is None:
+        if name == "decode_attention_e4m3":
+            row["library"] = rows[0]["library"]
+            row["library_bf16_sdpa_ms"] = rows[0]["library_bf16_sdpa_ms"]
+            row["library_bf16_bound_ms"] = rows[0]["library_bf16_bound_ms"]
+            row["note"] = ("the e4m3 route of decode_attention: the "
+                           "reference's kernel takes an e4m3 cache and casts "
+                           "it to fp32 (src/repro/kernels/decode_attention.py"
+                           ":42-43)")
+        elif row["library_ms"] is None:
             row["library"] = "none: no single PyTorch call computes it"
         elif name == "tiered_matmul_experts":
             row["library"] = rows[0]["library"]
@@ -2319,9 +2712,44 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
             row["parent_ms"] = (parent_ms or {}).get(name)
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
-        row["shapes"] = _arch_shapes(checks, name)
+        row["shapes"] = (_e4m3_shapes(checks)
+                         if name == "decode_attention_e4m3"
+                         else _arch_shapes(checks, name))
+        if name == "decode_attention":
+            row["shapes"] += _long_shapes(checks)
         out.append(row)
     return {"kernels": out}
+
+
+def _long_shapes(checks) -> list:
+    """decode_attention's timed row at zamba2-1.2b's long_500k shape (bf16,
+    all 524,288 rows)."""
+    return [dict(arch="zamba2-1.2b:long_500k", rows=1,
+                 max_abs_err=r["max_abs_err"],
+                 float64_max_abs_err=r["float64_max_abs_err"],
+                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], library_ms=r["library_ms"])
+            for r in checks if r["kernel"] == "decode_attention"
+            and "ms" in r and r["shape"]["length"] == 524288]
+
+
+def _e4m3_shapes(checks) -> list:
+    """The e4m3 route's timed rows: gemma-2b's serving shape (fp32 and
+    bf16 q) and chatglm3-6b's decode_32k shape."""
+    out = []
+    for r in checks:
+        s = r["shape"]
+        if r["kernel"] != "decode_attention_e4m3" or "ms" not in r:
+            continue
+        label = ("chatglm3-6b:decode_32k" if s["G"] == 16 else
+                 "gemma-2b:decode_32k" if s["B"] == 128 else
+                 f"gemma-2b:serving:{r['dtype']}")
+        out.append(dict(arch=label, rows=1, max_abs_err=r["max_abs_err"],
+                        ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=None,
+                        library_bf16_sdpa_ms=r["library_bf16_sdpa_ms"]))
+    return out
 
 
 def _arch_shapes(checks, name) -> list:
@@ -2351,17 +2779,25 @@ def _arch_shapes(checks, name) -> list:
                          PHI3V_FRONT_FLASH_SHAPE),
                         ("nemotron-4-340b", NEMOTRON_FLASH_SHAPE),
                         ("nemotron-4-340b:w_up", None),
-                        ("nemotron-4-340b:w_down", None)):
+                        ("nemotron-4-340b:w_down", None),
+                        ("gemma-2b@M128", None), ("chatglm3-6b@M128", None),
+                        ("xlstm-350m@M128", None), ("zamba2-1.2b@M1", None),
+                        ("xlstm-350m@M1", None)):
         # "arch+frontend": the flash pair only; "arch:product": that
         # product only
         label, front, one = arch, "+" in arch, ":" in arch
-        arch = arch.split("+")[0].split(":")[0]
+        # "arch@M128", "arch@M1": its products at that M
+        at_m = arch.split("@")[1].lower() if "@" in arch else None
+        arch = arch.split("+")[0].split(":")[0].split("@")[0]
         acfg = get_config(arch)
 
         def want(r):
             s = r["shape"]
             if r["kernel"] != name or (front and not name.startswith("flash")):
                 return False
+            if at_m:
+                return name == "tiered_matmul" and str(
+                    s["product"]).startswith(f"{at_m}:{arch}:")
             if one:
                 return (name == "tiered_matmul" and r["dtype"] == "bfloat16"
                         and s["product"] == label)
@@ -2693,6 +3129,7 @@ def main() -> int:
     timed("build", phase_build)
     timer = Timer()
     checks = timed("check", phase_check, timer)
+    timed("check", phase_e4m3_cast)
     parent_ms = timed("parent", parent_ssd_ms, parent) if parent else None
     timed("runtime", phase_runtime, timer)
     for arch, heads, head_dim in (
@@ -2709,6 +3146,7 @@ def main() -> int:
             ("phi-3-vision-4.2b", None, 96), ("nemotron-4-340b", 12, 192)):
         timed("parity", phase_parity, arch, heads, head_dim)
     timed("sim", phase_sim)
+    dryrun_paths = timed("dryrun", phase_dryrun)
     paths = [
         timed("serve", phase_serve, "gemma-2b", "serve"),
         timed("train", phase_train, "gemma-2b", 2048, "train"),
@@ -2744,7 +3182,7 @@ def main() -> int:
         timed("train_phi3v", phase_train, "phi-3-vision-4.2b", 2048,
               "train_phi3v", PHI3V_TRAIN_LAYERS, PHI3V_TRAIN_LR),
         timed("serve_nemotron", phase_serve, "nemotron-4-340b",
-              "serve_nemotron", NEMOTRON_SERVE_LAYERS)]
+              "serve_nemotron", NEMOTRON_SERVE_LAYERS)] + dryrun_paths
     emit(dict(phase="seconds", by_phase=seconds))
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))

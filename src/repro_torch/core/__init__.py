@@ -8,7 +8,8 @@ from .faults import (ChannelHealth, ChaosBackend, CopyError, CopyFailedError,
                      CopyTimeoutError, DegradedServe, EvictionRollback,
                      FaultLog, FaultSpec, TransientCopyError, host_sub_seed)
 from .histogram import Histogram, uniform_mass
-from .instrumentation import InstrumentationSource, ManualSource, PhaseSample
+from .instrumentation import (InstrumentationSource, ManualSource,
+                              OperandAttributionSource, PhaseSample)
 from .knapsack import Item, solve as knapsack_solve
 from .monitor import VariationMonitor
 from .mover import (AsyncTorchTierBackend, ChannelSimBackend, CpuPoolBackend,
@@ -43,7 +44,8 @@ __all__ = [
     "CpuPoolBackend", "ProactiveMover", "SimTierBackend",
     "ChannelSimBackend", "SlackAwareMover", "MoveRecord",
     "available_backends", "make_backend", "register_backend",
-    "InstrumentationSource", "ManualSource", "PhaseSample",
+    "InstrumentationSource", "ManualSource", "OperandAttributionSource",
+    "PhaseSample",
     "Session", "PhaseContext", "TierAudit",
     "ChannelHealth", "ChaosBackend", "CopyError", "CopyFailedError",
     "CopyTimeoutError", "DegradedServe", "EvictionRollback", "FaultLog",

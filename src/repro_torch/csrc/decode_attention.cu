@@ -57,6 +57,20 @@
 //   flops.
 // * With length == 0 the output is zero, as the TPU kernel returns.  q may
 //   be fp32 over a bf16 cache.
+// * An fp8 (e4m3) cache, q fp32 or bf16 (the reference's serving cache
+//   with kv_dtype=float8_e4m3fn, which its Pallas kernel casts to fp32 as
+//   it does bf16): a 16-byte chunk holds 16 values, decoded into fp32 in
+//   registers by `unpack16` from their bits (`e4m3_to_f`: exact for
+//   normals and subnormals, the encoding's NaN S.1111.111 decoded to NaN,
+//   as the reference's astype(float32) does).  The rings, the softmax and
+//   the merges are the bf16 route's.  A chunk's 16 values make a lane's q
+//   and acc twice the bf16 route's, so a block takes at most 4 heads
+//   (G 8: two blocks read each row, the second from L2).  The route reads
+//   half the bf16 route's bytes for the same FFMA work, and each head
+//   group decodes every value again (~6 integer ops a value): on an H100
+//   at gemma-2b's decode_32k shape (B 128, 32,768 rows, G 8) a call takes
+//   4.89 ms against its 0.641 ms bytes bound, bound by that work, not by
+//   bytes.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,9 +92,26 @@ constexpr int kMaxD = 256;
 constexpr int kMaxSplit = 8;          // blocks of a cluster (portable)
 constexpr float kLog2e = 1.4426950408889634f;
 
+// An fp8 e4m3 cache element (1 sign, 4 exponent bits of bias 7, 3
+// mantissa bits; no infinities, S.1111.111 is NaN): the bits only.
+struct e4m3 {
+  uint8_t bits;
+};
+constexpr uint32_t kE4m3Bias = 7;
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// e4m3 bits (in the low byte of b) as fp32: the exponent and mantissa
+// placed under fp32's (bias 127) and scaled by 2^(127 - kE4m3Bias), exact
+// for normals and subnormals alike (an fp32 subnormal times 2^120 is
+// exact: nvcc keeps fp32 subnormals unless -ftz); the NaN encoding to NaN.
+__device__ __forceinline__ float e4m3_to_f(uint32_t b) {
+  const float scale = __uint_as_float((254u - kE4m3Bias) << 23);
+  const float x = __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7Fu) << 20))
+                  * scale;
+  return (b & 0x7Fu) == 0x7Fu ? __uint_as_float(0x7FC00000u) : x;
 }
 
 // 16 bytes as fp32
@@ -98,6 +129,14 @@ __device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* x) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+__device__ __forceinline__ void unpack16(const e4m3* p, float* x) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[4 * i + j] = e4m3_to_f(w[i] >> (8 * j));
 }
 
 // Cluster barriers: the first publishes each block's partials in its
@@ -512,7 +551,8 @@ int launch(const Args& a, int B, int n_split, cudaStream_t stream) {
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// heads a block owns (1, 2, 4 or 8), chosen by the caller
+// heads a block owns (1, 2, 4 or 8; an e4m3 cache 1, 2 or 4), chosen by
+// the caller
 template <typename TQ, typename TKV>
 int launch_g(const Args& a, int B, int n_split, int heads,
              cudaStream_t stream) {
@@ -520,20 +560,36 @@ int launch_g(const Args& a, int B, int n_split, int heads,
     case 1: return launch<TQ, TKV, 1>(a, B, n_split, stream);
     case 2: return launch<TQ, TKV, 2>(a, B, n_split, stream);
     case 4: return launch<TQ, TKV, 4>(a, B, n_split, stream);
-    case 8: return launch<TQ, TKV, 8>(a, B, n_split, stream);
+    case 8:
+      if constexpr (sizeof(TKV) > 1)
+        return launch<TQ, TKV, 8>(a, B, n_split, stream);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bytes of a cache element of dtype code `dtype_kv`, 0 for a code the
+// kernel does not take
+int kv_element_bytes(int dtype_kv) {
+  switch (dtype_kv) {
+    case 0: return 4;
+    case 1: return 2;
+    case 2: return 1;
+    default: return 0;
   }
 }
 
 }  // namespace
 
-// dtypes: 0 = float32, 1 = bfloat16; q and the output share dtype_q, k and
-// v share dtype_kv (an fp32 model may read a bf16 cache).  k and v rows are
-// read in 16-byte pieces: D * element size a multiple of 16, k and v
-// 16-byte aligned, their strides multiples of 16 bytes; q_vec says the same
-// of q.  `heads` (1, 2, 4 or 8) query heads a block; 1 <= n_split <= 8
-// blocks of `rows_per_split` rows each per (b, k, group of heads).  Returns
-// a CUDA error code (0 on success).
+// dtypes: 0 = float32, 1 = bfloat16, 2 = float8 e4m3 (the cache only); q
+// and the output share dtype_q, k and v share dtype_kv (an fp32 model may
+// read a bf16 cache; either reads an e4m3 one).  k and v rows are read in
+// 16-byte pieces: D * element size a multiple of 16, k and v 16-byte
+// aligned, their strides multiples of 16 bytes; q_vec says the same of q.
+// `heads` (1, 2, 4 or 8; 1, 2 or 4 over e4m3) query heads a block; 1 <=
+// n_split <= 8 blocks of `rows_per_split` rows each per (b, k, group of
+// heads).  Returns a CUDA error code (0 on success; cudaErrorInvalidValue,
+// with nothing launched, for arguments it does not take).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     int B, int K, int G, int D, int length, int n_split, int rows_per_split,
@@ -543,10 +599,14 @@ extern "C" int decode_attention_launch(
     long long vs_b, long long vs_k, long long vs_t,
     long long os_b, long long os_k, long long os_g,
     int dtype_q, int dtype_kv, void* stream) {
-  const int elsize = dtype_kv == 0 ? 4 : 2;
-  if (G > kMaxG || D > kMaxD || G < 1 || D < 1 || (D * elsize) % 16 != 0
-      || n_split < 1 || n_split > kMaxSplit || rows_per_split < 1 || B < 1
-      || K < 1)
+  const long long elsize = kv_element_bytes(dtype_kv);
+  if (elsize == 0 || G > kMaxG || D > kMaxD || G < 1 || D < 1
+      || (D * elsize) % 16 != 0 || n_split < 1 || n_split > kMaxSplit
+      || rows_per_split < 1 || B < 1 || K < 1
+      || reinterpret_cast<uintptr_t>(k) % 16 != 0
+      || reinterpret_cast<uintptr_t>(v) % 16 != 0
+      || (ks_b * elsize) % 16 || (ks_k * elsize) % 16 || (ks_t * elsize) % 16
+      || (vs_b * elsize) % 16 || (vs_k * elsize) % 16 || (vs_t * elsize) % 16)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, out, K, G, D, length, rows_per_split, q_vec, scale,
          qs_b, qs_k, qs_g, ks_b, ks_k, ks_t, vs_b, vs_k, vs_t,
@@ -558,6 +618,10 @@ extern "C" int decode_attention_launch(
     return launch_g<__nv_bfloat16, __nv_bfloat16>(a, B, n_split, heads, s);
   if (dtype_q == 0 && dtype_kv == 1)
     return launch_g<float, __nv_bfloat16>(a, B, n_split, heads, s);
+  if (dtype_q == 0 && dtype_kv == 2)
+    return launch_g<float, e4m3>(a, B, n_split, heads, s);
+  if (dtype_q == 1 && dtype_kv == 2)
+    return launch_g<__nv_bfloat16, e4m3>(a, B, n_split, heads, s);
   return (int)cudaErrorInvalidValue;
 }
 

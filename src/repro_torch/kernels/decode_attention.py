@@ -4,6 +4,8 @@
 Port of the reference package's Pallas kernel
 (``kernels/decode_attention.py``).  On a CUDA tensor the wrapper launches
 the kernel or raises; only a CPU tensor takes :func:`decode_attention_plain`.
+The cache may be float32, bfloat16 or fp8 e4m3 (``torch.float8_e4m3fn``,
+the kernel's e4m3 route, counted in ``e4m3_launches``).
 """
 
 from __future__ import annotations
@@ -13,29 +15,38 @@ import math
 
 import torch
 
+from .. import record
 from . import build, ref
 
-#: launches of the CUDA kernel since the last reset
+#: launches of the CUDA kernel over a float32 or bfloat16 cache since the
+#: last reset
 launches = 0
+#: launches of its e4m3 route (an fp8 cache) since the last reset
+e4m3_launches = 0
 
 _HEADS = 8                  # query heads a block takes at most
+_HEADS_E4M3 = 4             # ... over an e4m3 cache (a lane's q and acc)
 _STAGES = 8                 # steps in each warp's cp.async ring
 _WARPS = 4                  # warps of a block
 _MAX_SPLIT = 8              # blocks of a cluster (the portable size)
 _TARGET_BLOCKS = 264        # two blocks per SM of an H100 (132 SMs)
 _MAX_G, _MAX_D = 16, 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+E4M3 = torch.float8_e4m3fn
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, E4M3: 2}
 #: (q dtype, cache dtype) pairs the kernel takes; an fp32 model reads a
-#: bf16 cache, as the reference's serving path does
+#: bf16 cache, as the reference's serving path does, and either reads an
+#: e4m3 one (the reference's kv_dtype=float8_e4m3fn)
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-          (torch.float32, torch.bfloat16)}
+          (torch.float32, torch.bfloat16), (torch.float32, E4M3),
+          (torch.bfloat16, E4M3)}
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, length: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch: rows at or past ``length``
     are never read, and ``length == 0`` gives zeros, as the TPU kernel
-    does (the reference's naive oracle gives mean(v) there)."""
+    does (the reference's naive oracle gives mean(v) there).  An e4m3
+    cache is dequantized with ``.float()``, its NaN encoding to NaN."""
     if length == 0:
         return torch.zeros_like(q)
     return ref.decode_attention_ref(q, k[:, :, :length], v[:, :, :length],
@@ -53,9 +64,10 @@ def _check(q, k, v, length: int) -> None:
         raise ValueError(f"decode_attention: length {length} outside "
                          f"[0, {k.shape[2]}]")
     if (k.dtype != v.dtype or (q.dtype, k.dtype) not in _PAIRS):
-        raise TypeError("decode_attention: q, k, v must be float32 or "
-                        "bfloat16, k and v alike, and q no narrower than k "
-                        f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+        raise TypeError("decode_attention: q float32 or bfloat16; k and v "
+                        "alike, float32, bfloat16 or float8_e4m3fn, and no "
+                        f"wider than q (got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype})")
     if not (q.device == k.device == v.device):
         raise ValueError("decode_attention: q, k, v on different devices")
 
@@ -69,14 +81,15 @@ def _rows_per_step(D: int, elsize: int) -> int:
     return 32 // lanes
 
 
-def _heads_per_block(G: int) -> int:
+def _heads_per_block(G: int, elsize: int) -> int:
     """Query heads one block takes (1, 2, 4 or 8): all G of a KV head up to
     8, so that each K and V row a block loads serves every one of them.
     At G = 16 two blocks take 8 heads each and read each row once apiece
     (the second read finds it in L2): 16 heads' q and acc would not fit a
-    lane's registers."""
-    heads = 1
-    while heads < min(G, _HEADS):
+    lane's registers.  Over an e4m3 cache (``elsize`` 1) a lane holds 16
+    values of a row, twice the bf16 route's, so a block takes at most 4."""
+    heads, most = 1, _HEADS_E4M3 if elsize == 1 else _HEADS
+    while heads < min(G, most):
         heads *= 2
     return heads
 
@@ -101,7 +114,7 @@ def _split_rows(groups: int, heads: int, D: int, elsize: int, length: int):
 
 def _check_cuda(q, k, v) -> None:
     """What the kernel takes: G <= 16, D <= 256, and K and V rows it can
-    read in 16-byte pieces."""
+    read in 16-byte pieces (an e4m3 row: D a multiple of 16)."""
     B, K, G, D = q.shape
     if G > _MAX_G or D > _MAX_D:
         raise ValueError(f"decode_attention: kernel takes G <= {_MAX_G} and "
@@ -116,13 +129,22 @@ def _check_cuda(q, k, v) -> None:
                          f"address must be multiples of {vec} elements")
 
 
+def _operands(q, k, v, length, *, out):
+    """What a call reads (q and the cache's first ``length`` rows) and
+    writes, for an installed recorder."""
+    length = int(length)
+    return (q, k[:, :, :length], v[:, :, :length]), (out,)
+
+
+@record.kernel(_operands)
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: int) -> torch.Tensor:
     """q: (B, K, G, D); k, v: (B, K, T, D), any strides with unit stride on
     D (the serving cache is passed as a strided view); ``length``: number
     of valid cache rows.  Returns (B, K, G, D) in q's dtype.  q may be
-    float32 over a bfloat16 cache.  One kernel launch a call."""
-    global launches
+    float32 over a bfloat16 cache, and either over an e4m3 one.  One
+    kernel launch a call."""
+    global launches, e4m3_launches
     length = int(length)
     _check(q, k, v, length)
     if q.device.type == "cpu":
@@ -131,7 +153,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check_cuda(q, k, v)
     B, K, G, D = q.shape
-    heads = _heads_per_block(G)
+    heads = _heads_per_block(G, k.element_size())
     n_split, rows = _split_rows(B * K * -(-G // heads), heads, D,
                                 k.element_size(), length)
     # q read by 16-byte loads where its rows allow it
@@ -151,7 +173,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
+    if k.dtype == E4M3:
+        e4m3_launches += 1
+    else:
+        launches += 1
     return out
 
 

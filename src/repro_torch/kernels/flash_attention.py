@@ -19,6 +19,7 @@ from typing import Tuple
 
 import torch
 
+from .. import record
 from . import build
 from .ref import NEG_INF
 
@@ -104,6 +105,7 @@ def _check_cuda(*tensors) -> None:
                          "tensors")
 
 
+@record.kernel(lambda q, k, v, causal=True, *, out: ((q, k, v), out))
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,6 +142,8 @@ def _dkdv_split(B: int, K: int, G: int, S: int, T: int,
     return max(1, min(8, row_tiles, -(-264 // blocks)))
 
 
+@record.kernel(lambda q, k, v, o, dout, lse, causal=True, *, out:
+               ((q, k, v, o, dout, lse), out))
 def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True
                         ) -> Tuple[torch.Tensor, ...]:
     """Gradients (dq, dk, dv) of :func:`flash_attention_fwd` at ``dout``,

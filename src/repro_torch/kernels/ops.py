@@ -23,6 +23,7 @@ ssd_scan = _ssd.ssd_scan
 
 #: counter name -> (module, attribute holding its launches)
 _COUNTERS = {"decode_attention": (_da, "launches"),
+             "decode_attention_e4m3": (_da, "e4m3_launches"),
              "tiered_matmul": (_mm, "launches"),
              "tiered_matmul_experts": (_mm, "expert_launches"),
              "flash_attention": (_fa, "launches"),

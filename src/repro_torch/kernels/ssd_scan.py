@@ -77,6 +77,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import record
 from . import build
 
 #: launches of the forward kernel since the last reset
@@ -300,6 +301,8 @@ def _strides(t: torch.Tensor):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
+@record.kernel(lambda a, k, v, q, chunk=256, initial_state=None,
+               save_states=False, *, out: ((a, k, v, q, initial_state), out))
 def ssd_scan_fwd(a, k, v, q, chunk: int = 256, initial_state=None,
                  save_states: bool = False):
     """(y (B, H, S, P), final state (B, H, N, P), chunk-entry states
@@ -336,6 +339,9 @@ def ssd_scan_fwd(a, k, v, q, chunk: int = 256, initial_state=None,
     return y, final, states if save_states else None
 
 
+@record.kernel(lambda a, k, v, q, dy, states, final, d_final, chunk,
+               has_initial, *, out: ((a, k, v, q, dy, states, final, d_final),
+                                     out))
 def ssd_scan_bwd(a, k, v, q, dy, states, final, d_final, chunk: int,
                  has_initial: bool):
     """Gradients (da, dk, dv, dq, d_initial_state or None) of

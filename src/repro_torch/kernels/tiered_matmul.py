@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from .. import record
 from . import build, ref
 
 #: launches of the CUDA kernel since the last reset
@@ -115,6 +116,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@record.kernel(lambda x, w, *, out: ((x, w), (out,)))
 def tiered_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (M, K); w: (K, N) -> (M, N) in x's dtype.  Any M, N, K: the
     kernel masks every edge, nothing is padded.  One launch a call."""
@@ -178,6 +180,15 @@ def tiered_matmul_experts_plain(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _expert_operands(x, w, expert, *, out):
+    """What an expert-route call reads (x, the indices and the weights of
+    the experts its rows pick: a host synchronisation, paid only while a
+    recorder is installed) and writes."""
+    picked = [w[i] for i in torch.unique(expert.long()).tolist()]
+    return (x, expert, *picked), (out,)
+
+
+@record.kernel(_expert_operands)
 def tiered_matmul_experts(x: torch.Tensor, w: torch.Tensor,
                           expert: torch.Tensor) -> torch.Tensor:
     """x: (R, K); w: (E, K, N); expert: (R,) int32, each in [0, E) ->

@@ -7,7 +7,7 @@ the reference leaves them to XLA, and runs the attention itself through
 the ``flash_attention`` kernel and its backward kernel.  The decode sends
 every projection through the ``tiered_matmul`` kernel and the attention
 through the ``decode_attention`` kernel (all via :mod:`..kernels.ops`);
-its cache is updated in place.
+its cache (bf16, fp32 or fp8 e4m3) is updated in place.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .common import apply_rope, dense_init
+from .common import apply_rope, dense_init, kv_cast
 
 
 def init_attn_params(generator: torch.Generator, cfg: ArchConfig,
@@ -98,8 +98,8 @@ def attn_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
     if rd:
         q = apply_rope(q, cos, sin, rotary_dim=rd)
         k = apply_rope(k, cos, sin, rotary_dim=rd)
-    cache_k[:, pos] = k.to(cache_k.dtype)
-    cache_v[:, pos] = v.to(cache_v.dtype)
+    cache_k[:, pos] = kv_cast(k, cache_k.dtype)
+    cache_v[:, pos] = kv_cast(v, cache_v.dtype)
     out = ops.decode_attention(q.view(B, K, H // K, Dh),
                                cache_k.permute(0, 2, 1, 3),
                                cache_v.permute(0, 2, 1, 3), pos + 1)

@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, activations, rotary embeddings, init.
+"""Shared model primitives: norms, activations, rotary embeddings, init,
+the KV cache's element conversion.
 
 Counterparts of the reference package's ``models/common.py``.  Shard hints
 are dropped (one card), and the embedding lookup is a plain index.
@@ -87,6 +88,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.cat([out1.to(x.dtype), out2.to(x.dtype), xp], dim=-1)
 
 
+# ------------------------------------------------------------- KV cache
+#: the fp8 KV cache's element type (the reference's kv_dtype=float8_e4m3fn)
+E4M3 = torch.float8_e4m3fn
+#: its largest finite value
+E4M3_MAX = 448.0
+
+
+def kv_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` as the KV cache's ``dtype`` stores it.  Into e4m3 one explicit
+    conversion, the same on the CPU and the card: through fp32 (exact from
+    bf16), saturated to +-448 (NaN stays NaN), rounded to nearest even.  In
+    range that gives the reference's bits; past +-464 and at +-inf the
+    reference gives NaN (ROADMAP P12).  (Without the clamp the devices
+    differ there: torch's cast saturates on the CPU and gives NaN on an
+    H100.)  Any other dtype: ``x.to(dtype)``."""
+    if dtype != E4M3:
+        return x.to(dtype)
+    return x.float().clamp(-E4M3_MAX, E4M3_MAX).to(E4M3)
+
+
 # ------------------------------------------------------------------ init
 #: leaves of more elements than this are drawn slab by slab (below it, in
 #: one fp32 draw: every leaf of the hybrid and xlstm configs and of the
@@ -145,6 +166,11 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
 def embed_init(generator: torch.Generator, shape: Tuple[int, ...],
                dtype=torch.bfloat16, std: float = 0.02) -> torch.Tensor:
     return _normal(generator, shape, dtype, std)
+
+
+def count_params(tree) -> int:
+    """Elements of every tensor in a nested dict / list / tuple."""
+    return sum(t.numel() for t in _tree.leaves(tree))
 
 
 def tree_bytes(tree) -> int:

@@ -173,7 +173,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
     and per layer the fp32 SSM state (n_layers, batch, H, N, P) and the
     conv window (n_layers, batch, K - 1, C) in bf16.  ``xlstm``: per mLSTM
     layer the fp32 state (n_m, batch, H, P, P + 1), per sLSTM layer its
-    fp32 h, c, n, m (n_s, batch, H, P); no keys or values.  All zeroed."""
+    fp32 h, c, n, m (n_s, batch, H, P); no keys or values.  All zeroed.
+    ``kv_dtype``: the keys' and values' dtype, bf16 as the reference's
+    default, or ``torch.float8_e4m3fn`` (half the bytes; the reference's
+    fp8 cache), which the decode writes through :func:`.common.kv_cast`
+    and the ``decode_attention`` kernel's e4m3 route reads."""
     if cfg.block_pattern == "xlstm":
         n_m, n_s = _xlstm_counts(cfg)
         cache = {"mlstm": _stacked(

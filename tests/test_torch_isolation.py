@@ -1,5 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every submodule,
-``repro_torch.sim`` and ``repro_torch.distributed`` among them) and
+``repro_torch.sim``, ``repro_torch.distributed``, the dry run and its
+roofline (``launch.dryrun``, ``launch.roofline``) and the attribution
+source (``core.instrumentation``, ``record``) among them) and
 ``chip_smoke`` pulls in neither jax nor the reference package, and no
 source file of the port, ``chip_smoke.py`` or ``chip_mutants.py`` or the
 port's examples (``examples/*_torch.py``) imports either."""
@@ -39,7 +41,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "          'train.loop', 'train.step', 'launch.train',\n"
         "          'kernels.flash_attention', 'sim', 'sim.engine',\n"
         "          'sim.workloads', 'sim.cluster', 'distributed',\n"
-        "          'distributed.coordinator'):\n"
+        "          'distributed.coordinator', 'launch.dryrun',\n"
+        "          'launch.roofline', 'core.instrumentation',\n"
+        "          'record'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
