@@ -78,7 +78,16 @@ command line run those mutants only.  The mutants:
   ``group_rows_capped_at_8`` (an expert's rows past its first tile are
   never computed), ``ranks_restart_every_32_rows`` (an expert's rows are
   ranked within each warp-wide chunk of 32 rows only, so past row 31 the
-  tiles take the wrong rows).
+  tiles take the wrong rows);
+- the knapsack DP (chip_smoke.py's knapsack checks: both routes, the
+  tie-heavy case, sizes past the capacity and of 0, behind a NaN fill of
+  shared memory): ``tie_breaks_to_new`` (``>=`` where the DP takes an
+  item only on ``>``), ``bit_order_reversed`` (each packed byte's bits in
+  the other order: column c at bit c & 7), ``oversize_item_applied`` (the
+  guard of sizes past the capacity dropped, so 2^32 + 3 is narrowed to 3
+  and applied, and 2^31 + 7 reads out of range), ``write_before_read``
+  (route 1 writes the new table back with no barrier after every thread's
+  reads).
 """
 
 import json
@@ -93,6 +102,7 @@ DECODE = "src/repro_torch/csrc/decode_attention.cu"
 SSD_FWD = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 MATMUL = "src/repro_torch/csrc/tiered_matmul.cu"
+KNAPSACK = "src/repro_torch/csrc/knapsack_dp.cu"
 # name: (source, text, replacement, checks)
 MUTANTS = {
     "corr_dropped": (FLASH, "        corr[h] = exp2f(m[h] * sl2 - base[h]);",
@@ -187,6 +197,18 @@ MUTANTS = {
         "const int tiles = min(counts[e], 1);", "experts"),
     "ranks_restart_every_32_rows": (
         MATMUL, "      seen += __popc(ballot);\n", "", "experts"),
+    "tie_breaks_to_new": (
+        KNAPSACK, "  return cand > old;", "  return cand >= old;", "knapsack"),
+    "bit_order_reversed": (
+        KNAPSACK, "  return __byte_perm(__brev(mask), 0, 0x0123);",
+        "  return mask;", "knapsack"),
+    "oversize_item_applied": (
+        KNAPSACK, "  return (uint64_t)s > (uint64_t)qcap;", "  return false;",
+        "knapsack"),
+    "write_before_read": (
+        KNAPSACK,
+        "    __syncthreads();  // every old value read before any is written\n",
+        "", "knapsack"),
 }
 _HEAD = r'''
 import json, sys, torch
@@ -302,6 +324,13 @@ for r in rows + cs._matmul_edge_cases(gen):
     "experts": _HEAD + r'''
 for r in cs._experts_cases(None, gen):
     print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
+                          err=r["max_abs_err"],
+                          same=r["bit_identical_rerun"])), flush=True)
+''',
+    # chip_smoke.py's knapsack DP check cases, untimed
+    "knapsack": _HEAD + r'''
+for r in cs._knapsack_cases(None):
+    print(json.dumps(dict(case=str(r["shape"]), ok=r["ok"],
                           err=r["max_abs_err"],
                           same=r["bit_identical_rerun"])), flush=True)
 ''',

@@ -12,11 +12,12 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails:
 
 1. device   -- the card (nvidia-smi name and power limit), torch and CUDA;
-2. build    -- the six kernels compiled from ``src/repro_torch/csrc`` with
-               nvcc for sm_90a, all at once, with the ptxas report
-               (decode_attention, tiered_matmul, ssd_scan and ssd_scan_bwd
-               compiled in every run, so that their reports are there to
-               read: no spill, required), each bf16 flash kernel's HGMMA
+2. build    -- the seven kernels compiled from ``src/repro_torch/csrc``
+               with nvcc for sm_90a, all at once, with the ptxas report
+               (decode_attention, tiered_matmul, ssd_scan, ssd_scan_bwd
+               and knapsack_dp compiled in every run, so that their reports
+               are there to read: no spill, required), each bf16 flash
+               kernel's HGMMA
                count and the SSD forward's and backward's HMMA (TF32, the
                chunk kernels) and DMMA (fp64, the sums kernels) counts
                (required);
@@ -59,7 +60,16 @@ result line) if any phase fails:
                xlstm-350m's decode products and at M = 1 on the long_500k
                cells' (zamba2-1.2b's and xlstm-350m's); and what
                the card's own cast to e4m3 gives at the range's edges, with
-               ``kv_cast`` the same bits on the card as on the CPU;
+               ``kv_cast`` the same bits on the card as on the CPU; the
+               knapsack DP (the planner's, ``core/knapsack.py``) byte for
+               byte against its plain version and the numpy DP: the
+               reference test's draw grown to 800 items (above the device
+               threshold), n 489 to 3,051 at qcap 16,384 and route 2 at
+               qcap 100,000 (timed: kernel, plain, the numpy DP on the
+               host, the keep table's copy to the host, ns an item), grids
+               of qcap + 1 no multiple of 8, n 1, sizes past the capacity
+               and of 0, a tie-heavy case, both routes on one input, behind
+               a NaN fill of shared memory and a second call;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -79,6 +89,12 @@ result line) if any phase fails:
                quickstart's CG workload DRAM-only, NVM-only and under
                Unimem, twice (same plan digest and iteration times), and
                the planner's wall time on each (re)plan;
+6a. planner -- the reference's chunk fixture (``sim/planner_fixture.py``)
+               at 2,000 and 3,000 chunks, each plan built with the numpy
+               DP and with the DP on the card (``knapsack.use_device``):
+               the same plan JSON and digest, solves of 8M to 50M cells,
+               one knapsack_dp launch a solve above the threshold, and the
+               build's wall time both ways;
 6b. dryrun  -- ``launch/dryrun.py``'s fit prediction of every (config x
                decode shape) cell, then each cell predicted to fit run at
                full width and depth (gemma-2b and chatglm3-6b decode_32k
@@ -130,7 +146,8 @@ result line) if any phase fails:
                plain squared-ReLU MLP of 73728) cut to 6 of its 96 layers
                (682 GB of weights fit no tier) served as gemma-2b is;
 16. kernels -- one line with each kernel's numbers (the e4m3 route as
-               ``decode_attention_e4m3``).
+               ``decode_attention_e4m3``; knapsack_dp's launches from the
+               planner phase).
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
@@ -158,6 +175,7 @@ import hashlib
 import json
 import math
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -169,6 +187,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # the training phase holds ~40 GB of state beside multi-GB transients
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -178,7 +197,9 @@ from repro_torch.core import (H100_HBM_HOST, PAPER_DRAM_NVM,  # noqa: E402
                               ManualSource, ObjectRegistry,
                               OperandAttributionSource, RuntimeConfig,
                               Session, UnimemRuntime, calibrate)
+from repro_torch.core import knapsack  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import knapsack_dp as kdp  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -192,6 +213,7 @@ from repro_torch.models.common import E4M3, kv_cast, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.sim import planner_fixture  # noqa: E402
 from repro_torch.train.loop import TrainConfig, train  # noqa: E402
 from repro_torch.train.step import (build_grads_step,  # noqa: E402
                                     build_train_step)
@@ -295,6 +317,10 @@ KERNELS = {
     # (models/mamba2.py:26 chunked_linear_scan) by autodiff
     "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
                      "src/repro/kernels/ssd_scan.py:23"),
+    # no Pallas kernel: the reference runs the planner's knapsack DP as one
+    # jitted lax.scan (core/knapsack.py:76 _jax_dp)
+    "knapsack_dp": ("src/repro_torch/csrc/knapsack_dp.cu",
+                    "src/repro/core/knapsack.py:76"),
 }
 # the sources the kernels are built from, by name (csrc/<name>.cu)
 SOURCES = sorted({os.path.basename(src)[:-3]
@@ -389,6 +415,23 @@ EARLIER_SERVE_LAYERS = {"zamba2-1.2b": 12, "yi-6b": 8, "chatglm3-6b": 8,
 MUSICGEN_TRAIN_LR = 1e-5
 PHI3V_TRAIN_LAYERS = None
 PHI3V_TRAIN_LR = 1e-5
+# The knapsack DP (the planner's, core/knapsack.py) at the planner's grid,
+# max_cells 16,384: qcap 16,384 at a 256 MiB fast tier.  Its item counts
+# span the device DP's range there, from the threshold (489 x 16,384 =
+# 8.0M cells, knapsack._DEVICE_MIN_WORK) to the greedy cut (3,051 x
+# 16,384 = 50.0M); the kernels line's row is n 2,000, the 2,000-chunk
+# fixture's global solve.  Its bound counts the fp64 adds at the data
+# sheet's fp64 rate (H100 SXM, no tensor core).
+KNAPSACK_QCAP = 1 << 14
+KNAPSACK_NS = (489, 1000, 2000, 3051)
+KNAPSACK_LINE_N = 2000
+FP64_PEAK = 34e12
+# The planner phase: the reference's chunk fixture (sim/planner_fixture.py)
+# at these chunk counts and fast tier, each plan built with the numpy DP and
+# with the device DP
+PLANNER_CHUNKS = (2000, 3000)
+PLANNER_CAPACITY = 256 * MB
+PLANNER_BUILDS = 3
 
 
 def emit(obj) -> None:
@@ -495,7 +538,8 @@ def _sass_counts(name: str) -> dict:
 
 
 # kernels whose ptxas report is required in every run, with no spill
-NO_SPILL = ("decode_attention", "tiered_matmul", "ssd_scan", "ssd_scan_bwd")
+NO_SPILL = ("decode_attention", "tiered_matmul", "ssd_scan", "ssd_scan_bwd",
+            "knapsack_dp")
 
 
 def phase_build() -> None:
@@ -1402,6 +1446,148 @@ def _m1_products() -> list:
             for name, K, N in products]
 
 
+def _knapsack_reference_draw(n_items: int = 800):
+    """The reference's device-DP test draw (its tests/test_planner_scale.py:
+    random.Random(7), values U(-0.5, 2), sizes 1-4 MiB, a 256 MiB fast
+    tier) grown from 600 to 800 items, filtered and quantized as
+    ``solve_arrays`` does: (values, qsizes, qcap)."""
+    rng = random.Random(7)
+    draws = [(rng.uniform(-0.5, 2.0), rng.randint(1, 4) * MB)
+             for _ in range(n_items)]
+    values = np.array([v for v, _ in draws], dtype=np.float64)
+    sizes = np.array([s for _, s in draws], dtype=np.int64)
+    keep = (values > 0.0) & (sizes <= 256 * MB)
+    qsizes, qcap = knapsack._quantize(sizes[keep], 256 * MB, 1 << 14)
+    return values[keep], qsizes, qcap
+
+
+def _knapsack_inputs(kind: str, n: int, qcap: int, seed: int):
+    """(values float64, qsizes int64) numpy draws: "planner" values U(0, 1)
+    over sizes of 16-256 quanta (0.25-4 MiB at qcap 16,384); "ties"
+    integer values from {1, 2, 3} over sizes from {1, 2, 3}, so that the
+    strict comparison decides most rows; "edges" small sizes with items
+    past the capacity (qcap + 1, qcap + 2, 10^6, 2^31 + 7, 2^32 + 3: a
+    size narrowed to int without the guard is applied or read out of
+    range) and of size 0."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        return (rng.integers(1, 4, n).astype(np.float64),
+                rng.integers(1, 4, n).astype(np.int64))
+    values = rng.uniform(1e-3, 1.0, n)
+    if kind == "planner":
+        return values, rng.integers(16, 257, n).astype(np.int64)
+    sizes = rng.integers(0, max(qcap // 4, 1), n).astype(np.int64)
+    for i, s in enumerate((qcap + 1, 0, qcap + 2, 10 ** 6, 0, 2 ** 31 + 7,
+                           2 ** 32 + 3)):
+        sizes[(i * 37 + 3) % n] = s
+    return values, sizes
+
+
+def _knapsack_case(timer, case: str, values, qsizes, qcap: int,
+                   route=None, stale_nan=False, line=False) -> dict:
+    """The kernel's keep table against its plain version on the card and
+    the numpy DP (``core/knapsack.py`` ``_numpy_dp``) on the host, byte for
+    byte, and a second call's bytes against the first; also against route
+    2 where ``route`` is 2.  Timed (``timer``): kernel, plain, the numpy
+    DP on the host, the keep table's copy to the host, ns an item, the
+    bound."""
+    dev = torch.device("cuda")
+    v, s = torch.from_numpy(values).to(dev), torch.from_numpy(qsizes).to(dev)
+    r = route or kdp.pick_route(qcap)
+    if stale_nan:
+        fill_shared_memory_nan(dev)
+    out = kdp.knapsack_dp(v, s, qcap, route=r)
+    again = kdp.knapsack_dp(v, s, qcap, route=r)
+    plain = kdp.knapsack_dp_plain(v, s, qcap)
+    torch.cuda.synchronize()
+    host = knapsack._numpy_dp(values, qsizes, qcap)
+    n = len(values)
+    err = (out.int() - plain.int()).abs().max().item() if n else 0
+    same_plain = torch.equal(out, plain)
+    same_numpy = np.array_equal(out.cpu().numpy(), host)
+    same = torch.equal(out, again)
+    row = dict(kernel="knapsack_dp", dtype="float64",
+               shape=dict(case=case, n=n, qcap=qcap, route=r,
+                          cells=n * qcap, stale_nan=stale_nan),
+               max_abs_err=err, same_as_plain=same_plain,
+               same_as_numpy_dp=same_numpy, bit_identical_rerun=same,
+               ok=same_plain and same_numpy and same)
+    if r == 2 and qcap + 1 <= kdp.ROUTE1_CELLS:
+        one = kdp.knapsack_dp(v, s, qcap, route=1)
+        row["same_as_route_1"] = torch.equal(out, one)
+        row["ok"] = row["ok"] and row["same_as_route_1"]
+    if timer is None:
+        return row
+    row["ms"] = timer(lambda: kdp.knapsack_dp(v, s, qcap, route=r))
+    row["plain_ms"] = timer(lambda: kdp.knapsack_dp_plain(v, s, qcap), n=3,
+                            warmup=1)
+    host_s, copy_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        knapsack._numpy_dp(values, qsizes, qcap)
+        host_s.append(time.perf_counter() - t0)
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.cpu()
+        copy_s.append(time.perf_counter() - t0)
+    fits = qsizes[(qsizes >= 0) & (qsizes <= qcap)]
+    adds = float(np.sum(qcap + 1 - fits))
+    nbytes = values.nbytes + qsizes.nbytes + out.numel()
+    t_bytes, t_ops = nbytes / HBM_BW, adds / FP64_PEAK
+    row.update(numpy_dp_ms=statistics.median(host_s) * 1e3,
+               copy_to_host_ms=statistics.median(copy_s) * 1e3,
+               keep_bytes=out.numel(), ns_per_item=row["ms"] * 1e6 / n,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               fp64_adds=adds, library_ms=None, line=line)
+    return row
+
+
+def _knapsack_cases(timer) -> list:
+    """The knapsack DP kernel's checks: the reference test's draw grown to
+    800 items (above the device threshold, asserted), the planner's range
+    of item counts at qcap 16,384 and route 2 at qcap 100,000 (timed), grids
+    of qcap + 1 no multiple of 8, n 1, sizes past the capacity and of 0,
+    a tie-heavy case, route 2 forced where route 1 runs (the same bits),
+    and route 1 behind a NaN fill of shared memory."""
+    rows = []
+    values, qsizes, qcap = _knapsack_reference_draw()
+    require(len(values) * qcap >= knapsack._DEVICE_MIN_WORK,
+            f"the reference draw's {len(values)} x {qcap} cells reach the "
+            "device DP's threshold")
+    rows.append(_knapsack_case(timer, "reference_draw_800", values, qsizes,
+                               qcap))
+    rows.append(_knapsack_case(None, "reference_draw_800", values, qsizes,
+                               qcap, route=2))
+    rows.append(_knapsack_case(None, "reference_draw_800", values, qsizes,
+                               qcap, stale_nan=True))
+    for i, n in enumerate(KNAPSACK_NS):
+        rows.append(_knapsack_case(
+            timer, "planner", *_knapsack_inputs("planner", n, KNAPSACK_QCAP,
+                                                10 + i),
+            KNAPSACK_QCAP, line=n == KNAPSACK_LINE_N))
+    rows.append(_knapsack_case(                            # route 2
+        timer, "planner", *_knapsack_inputs("planner", 400, 100_000, 20),
+        100_000))
+    for case, n, qcap, seed, route, stale in (
+            ("planner", 700, 16_380, 21, None, False),      # 16,381 cells
+            ("edges", 300, 1000, 22, None, False),          # 1,001 cells
+            ("edges", 300, 1000, 22, 2, False),
+            ("edges", 300, 1000, 22, None, True),
+            ("edges", 40, 0, 23, None, False),              # one cell
+            ("planner", 1, KNAPSACK_QCAP, 24, None, False),
+            ("edges", 1, 7, 25, None, False),
+            ("ties", 2000, 1500, 26, None, False),
+            ("ties", 2000, 1500, 26, 2, False),
+            ("ties", 2000, 1500, 26, None, True),
+            ("ties", 3000, KNAPSACK_QCAP, 27, None, False)):
+        rows.append(_knapsack_case(
+            None, case, *_knapsack_inputs(case, n, qcap, seed), qcap,
+            route=route, stale_nan=stale))
+    return rows
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
@@ -1581,6 +1767,10 @@ def phase_check(timer) -> list:
     torch.cuda.empty_cache()
     for case in _ssd_stale_cases():
         rows += _ssd_case(None, *case, "near1", gen, stale_nan=True)
+    for r in _knapsack_cases(timer):
+        if "ms" in r:
+            r["launch_floor_ms"] = floor_ms
+        rows.append(r)
     for r in rows:
         emit(r)
     bad = [r for r in rows if not r["ok"]]
@@ -2607,6 +2797,119 @@ def phase_sim() -> dict:
     return res
 
 
+def _plan_build(chunks: int, device_dp: bool, cells: list):
+    """One plan of the chunk fixture (built afresh, untimed) with the numpy
+    DP or the device DP: (PlanProgram JSON, host seconds of the build,
+    the n * qcap of each knapsack solve)."""
+    fx = planner_fixture.build_chunk_fixture(chunks)
+    knapsack.use_device, knapsack.dp_device = device_dp, "cuda"
+    cells.clear()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog = planner_fixture.plan_program(*fx[:3], PLANNER_CAPACITY)
+        secs = time.perf_counter() - t0
+    finally:
+        knapsack.use_device = False
+    return prog.to_json(), secs, list(cells)
+
+
+def phase_planner() -> dict:
+    """The planner above the device DP's threshold: the reference's chunk
+    fixture (``sim/planner_fixture.py``) at PLANNER_CHUNKS chunks and a 256
+    MiB fast tier, each plan built PLANNER_BUILDS times with the numpy DP
+    and with the DP on the card (``knapsack.use_device``), in turns.  The
+    two plans' JSON and digests must be equal, every solve at most 50M
+    cells (no greedy cut) and some at least 8M (the device threshold), and
+    the knapsack_dp launches exactly the solves at or above it.  The cells
+    of each solve are read by wrapping ``knapsack._quantize`` from outside
+    the package (one call a solve, after the filter).  Counts are set to 0
+    just before the device builds and read just after."""
+    cells, quantize = [], knapsack._quantize
+
+    def counted(sizes, capacity, max_cells):
+        out = quantize(sizes, capacity, max_cells)
+        cells.append(len(sizes) * out[1])
+        return out
+    knapsack._quantize = counted
+    res = dict(phase="planner", fast_tier_bytes=PLANNER_CAPACITY,
+               device_min_work=knapsack._DEVICE_MIN_WORK, fixtures=[])
+    expected = 0
+    try:
+        ops.reset_launch_counts()            # the planner's path starts here
+        for chunks in PLANNER_CHUNKS:
+            runs = {False: [], True: []}
+            for _ in range(PLANNER_BUILDS):
+                for on in (False, True):
+                    runs[on].append(_plan_build(chunks, on, cells))
+            solve_cells = runs[True][0][2]
+            expected += PLANNER_BUILDS * sum(
+                c >= knapsack._DEVICE_MIN_WORK for c in solve_cells)
+            plans = {r[0] for rs in runs.values() for r in rs}
+            digests = {on: [hashlib.sha256(r[0].encode()).hexdigest()[:16]
+                            for r in rs] for on, rs in runs.items()}
+            res["fixtures"].append(dict(
+                chunks=chunks, solve_cells=solve_cells,
+                numpy_dp_build_s=[r[1] for r in runs[False]],
+                device_dp_build_s=[r[1] for r in runs[True]],
+                plan_digest_numpy=digests[False],
+                plan_digest_device=digests[True], plans_equal=len(plans) == 1,
+                plan_json_bytes=len(runs[True][0][0])))
+        launches = ops.launch_counts()       # ... and ends here
+    finally:
+        knapsack._quantize = quantize
+    res.update(launches=launches,
+               launches_expected=dict.fromkeys(launches, 0))
+    res["launches_expected"]["knapsack_dp"] = expected
+    emit(res)
+    for f in res["fixtures"]:
+        require(f["plans_equal"], f"{f['chunks']} chunks: the device DP's "
+                "plans equal the numpy DP's, JSON and digest")
+        require(max(f["solve_cells"]) <= 50_000_000
+                and max(f["solve_cells"]) >= knapsack._DEVICE_MIN_WORK,
+                f"{f['chunks']} chunks: solves between 8M and 50M cells "
+                f"({f['solve_cells']})")
+    require(launches["knapsack_dp"] > 0
+            and launches == res["launches_expected"],
+            f"knapsack_dp launched once a solve above the threshold "
+            f"({launches['knapsack_dp']} of {expected})")
+    return res
+
+
+def _knapsack_line(checks, paths) -> dict:
+    """knapsack_dp's row of the kernels line: the n 2,000 row at qcap
+    16,384 (the 2,000-chunk fixture's global solve), with every timed
+    size under ``shapes``; launches from the planner phase."""
+    mine = [r for r in checks if r["kernel"] == "knapsack_dp"]
+    timed = [r for r in mine if "ms" in r]
+    main = next(r for r in timed if r["line"])
+    by_path = {p["phase"]: p["launches"]["knapsack_dp"] for p in paths}
+    keys = ("ms", "plain_ms", "numpy_dp_ms", "copy_to_host_ms",
+            "ns_per_item", "bound_ms", "bound_by", "launch_floor_ms")
+    src, replaces = KERNELS["knapsack_dp"]
+    row = dict(name="knapsack_dp", route="cuda", source=src,
+               replaces=replaces, launches=sum(by_path.values()),
+               launches_by_path=by_path,
+               max_abs_err=max(r["max_abs_err"] for r in mine),
+               checks=len(mine), checks_ok=sum(r["ok"] for r in mine),
+               **{k: main[k] for k in keys}, library_ms=None,
+               library="none: no PyTorch call computes the DP",
+               note=("no Pallas kernel: the reference runs the DP as one "
+                     "jitted lax.scan (src/repro/core/knapsack.py:76 "
+                     "_jax_dp); numpy_dp_ms is the port's numpy DP on the "
+                     "card's host"),
+               covers=(f"one call, n {main['shape']['n']} over qcap "
+                       f"{main['shape']['qcap']} (route "
+                       f"{main['shape']['route']}), the 2,000-chunk "
+                       "fixture's global solve"),
+               path=[p for p, n in by_path.items() if n])
+    row["shapes"] = [dict(case=r["shape"]["case"], n=r["shape"]["n"],
+                          qcap=r["shape"]["qcap"], route=r["shape"]["route"],
+                          max_abs_err=r["max_abs_err"],
+                          **{k: r[k] for k in keys}) for r in timed]
+    return row
+
+
 def kernel_line(checks, paths, parent_ms=None) -> dict:
     """Each kernel's numbers at its path's shapes: decode attention one
     bf16 call at batch 4, length 160 over the (4, 1024, 1, 256) cache view;
@@ -2718,6 +3021,7 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
         if name == "decode_attention":
             row["shapes"] += _long_shapes(checks)
         out.append(row)
+    out.append(_knapsack_line(checks, paths))
     return {"kernels": out}
 
 
@@ -3146,6 +3450,7 @@ def main() -> int:
             ("phi-3-vision-4.2b", None, 96), ("nemotron-4-340b", 12, 192)):
         timed("parity", phase_parity, arch, heads, head_dim)
     timed("sim", phase_sim)
+    planner = timed("planner", phase_planner)
     dryrun_paths = timed("dryrun", phase_dryrun)
     paths = [
         timed("serve", phase_serve, "gemma-2b", "serve"),
@@ -3182,7 +3487,7 @@ def main() -> int:
         timed("train_phi3v", phase_train, "phi-3-vision-4.2b", 2048,
               "train_phi3v", PHI3V_TRAIN_LAYERS, PHI3V_TRAIN_LR),
         timed("serve_nemotron", phase_serve, "nemotron-4-340b",
-              "serve_nemotron", NEMOTRON_SERVE_LAYERS)] + dryrun_paths
+              "serve_nemotron", NEMOTRON_SERVE_LAYERS), planner] + dryrun_paths
     emit(dict(phase="seconds", by_phase=seconds))
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))

@@ -14,7 +14,11 @@ Three implementations share the algorithm:
   ``(values, sizes)`` ndarrays (no per-item ``Item`` boxing, which at
   10k-100k candidate chunks costs more than the solve itself).  The DP
   inner loop runs three fused numpy passes per item against a bit-packed
-  keep table.  Selections are bit-identical to the reference.
+  keep table; with :data:`use_device` enabled and the problem at least
+  :data:`_DEVICE_MIN_WORK` cells, the whole table recurrence runs on
+  :data:`dp_device` instead (``kernels/knapsack_dp.py``: one kernel launch
+  a solve on a card), and only the packed keep table comes back for the
+  backtrack.  Selections are bit-identical to the reference.
 * :func:`solve` — the :class:`Item`-sequence wrapper around
   :func:`solve_arrays` (the planner's historical entry point).
 * :func:`solve_reference` — the pre-optimization implementation, kept as the
@@ -51,11 +55,40 @@ def _quantize(sizes: Sequence[int], capacity: int, max_cells: int) -> Tuple[np.n
     return qsizes, qcap
 
 
-#: The reference package can run the DP table recurrence as one jitted
-#: scan; its device counterpart here is still to be written (ROADMAP.md,
-#: queue 1: "The knapsack DP on the device").  The numpy DP is the only
-#: path, so this switch must stay False.
-use_jax: bool = False
+# --------------------------------------------------------------------------
+# The DP on a device (optional): the whole table recurrence as one call of
+# ``ops.knapsack_dp`` (one kernel launch a solve on a card), the reference's
+# jitted-scan switch ``use_jax`` under its own name (ROADMAP.md, queue 3,
+# P14).  The per-item update is the same IEEE float64 add, compare and
+# select, so the packed keep table, and the backtracked selection, are the
+# numpy path's bits.
+# --------------------------------------------------------------------------
+_DEVICE_MIN_WORK = 8_000_000    # n * qcap below this: the numpy DP runs
+#: opt-in switch for the DP on ``dp_device``.  Off by default, as the
+#: reference's ``use_jax``: the simulator and the CPU tests run on machines
+#: without a card.
+use_device: bool = False
+#: where the DP runs when :data:`use_device` is on; "cuda" needs a card
+#: (no fallback to numpy without one), "cpu" runs the kernel's plain
+#: version
+dp_device: str = "cuda"
+
+
+def _device_dp(values: np.ndarray, qsizes: np.ndarray, qcap: int
+               ) -> np.ndarray:
+    """Packed keep table from ``ops.knapsack_dp`` on :data:`dp_device`:
+    the items to the device, one call, one copy of the table back."""
+    import torch
+
+    from ..kernels import ops
+    dev = torch.device(dp_device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "knapsack.use_device: dp_device is 'cuda' but no CUDA card is "
+            "present (set use_device False, or dp_device 'cpu')")
+    keep = ops.knapsack_dp(torch.from_numpy(values).to(dev),
+                           torch.from_numpy(qsizes).to(dev), qcap)
+    return keep.cpu().numpy()
 
 
 def _numpy_dp(values: np.ndarray, qsizes: np.ndarray, qcap: int) -> np.ndarray:
@@ -100,11 +133,10 @@ def solve_arrays(values: np.ndarray, sizes: np.ndarray, capacity_bytes: int,
     if n * qcap > 50_000_000:   # DP too big -> density greedy
         return pos_idx[_greedy_arrays(pvals, psizes, capacity_bytes)]
 
-    if use_jax:
-        raise NotImplementedError(
-            "knapsack.use_jax: the DP on the device is not ported yet "
-            "(ROADMAP.md, queue 1: 'The knapsack DP on the device')")
-    keep = _numpy_dp(pvals, qsizes, qcap)
+    if use_device and n * qcap >= _DEVICE_MIN_WORK:
+        keep = _device_dp(pvals, qsizes, qcap)
+    else:
+        keep = _numpy_dp(pvals, qsizes, qcap)
     # backtrack
     chosen: List[int] = []
     c = qcap

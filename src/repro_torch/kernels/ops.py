@@ -12,6 +12,7 @@ from typing import Dict
 
 from . import decode_attention as _da
 from . import flash_attention as _fa
+from . import knapsack_dp as _kn
 from . import ssd_scan as _ssd
 from . import tiered_matmul as _mm
 
@@ -20,6 +21,7 @@ tiered_matmul = _mm.tiered_matmul
 tiered_matmul_experts = _mm.tiered_matmul_experts
 flash_attention = _fa.flash_attention
 ssd_scan = _ssd.ssd_scan
+knapsack_dp = _kn.knapsack_dp
 
 #: counter name -> (module, attribute holding its launches)
 _COUNTERS = {"decode_attention": (_da, "launches"),
@@ -29,7 +31,8 @@ _COUNTERS = {"decode_attention": (_da, "launches"),
              "flash_attention": (_fa, "launches"),
              "flash_attention_bwd": (_fa, "bwd_launches"),
              "ssd_scan": (_ssd, "launches"),
-             "ssd_scan_bwd": (_ssd, "bwd_launches")}
+             "ssd_scan_bwd": (_ssd, "bwd_launches"),
+             "knapsack_dp": (_kn, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

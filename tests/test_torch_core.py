@@ -112,9 +112,23 @@ def test_knapsack_solve_arrays_matches_reference():
 
 
 def test_knapsack_device_dp_is_not_silently_used(monkeypatch):
-    monkeypatch.setattr(port_knapsack, "use_jax", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_knapsack.solve_arrays(np.ones(3), np.ones(3, np.int64), 10)
+    """With the device DP on and no card, a solve above the threshold
+    raises (no quiet fall back to numpy); one below it runs the numpy DP,
+    as the reference's does."""
+    monkeypatch.setattr(port_knapsack, "use_device", True)
+    monkeypatch.setattr(port_knapsack, "dp_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(3)
+    values = rng.uniform(0.01, 1.0, 600)
+    sizes = rng.integers(1, 5, 600) * MB
+    cap = 256 * MB                       # 600 x 16,384 = 9.8M cells
+    assert 600 * (cap // (cap // (1 << 14))) >= port_knapsack._DEVICE_MIN_WORK
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        port_knapsack.solve_arrays(values, sizes, cap)
+    few = slice(0, 400)                  # 400 x 16,384 = 6.6M cells
+    np.testing.assert_array_equal(
+        port_knapsack.solve_arrays(values[few], sizes[few], cap),
+        ref_knapsack.solve_arrays(values[few], sizes[few], cap))
 
 
 def test_tree_flattens_in_jax_order_with_jax_key_strings():

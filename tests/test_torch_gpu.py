@@ -841,3 +841,85 @@ def test_reduced_zamba2_forward_and_decode_on_card_match_the_cpu(cuda):
                 torch.testing.assert_close(
                     caches["cuda"]["mamba"][name].cpu(),
                     caches["cpu"]["mamba"][name], rtol=tol, atol=tol)
+
+
+def _knapsack_inputs(kind, n, qcap, seed):
+    """chip_smoke.py's knapsack inputs: "planner" values U(0, 1) over
+    16-256 quanta, "ties" integer values and sizes from {1, 2, 3}, "edges"
+    small sizes with items past the capacity (up to 2^32 + 3) and of 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        values = rng.integers(1, 4, n).astype(np.float64)
+        sizes = rng.integers(1, 4, n)
+    else:
+        values = rng.uniform(1e-3, 1.0, n)
+        sizes = (rng.integers(16, 257, n) if kind == "planner"
+                 else rng.integers(0, max(qcap // 4, 1), n))
+    if kind == "edges":
+        for i, s in enumerate((qcap + 1, 0, qcap + 2, 10 ** 6, 0,
+                               2 ** 31 + 7, 2 ** 32 + 3)):
+            sizes[(i * 37 + 3) % n] = s
+    return (torch.from_numpy(values).cuda(),
+            torch.from_numpy(sizes.astype(np.int64)).cuda())
+
+
+@pytest.mark.parametrize("kind,n,qcap", [
+    ("planner", 489, 16384), ("planner", 300, 16380), ("edges", 300, 1000),
+    ("edges", 40, 0), ("edges", 1, 7), ("ties", 2000, 1500),
+    ("ties", 1000, 16384)])
+@pytest.mark.parametrize("route", [1, 2])
+def test_knapsack_dp_kernel_is_the_plain_versions_bytes(cuda, kind, n, qcap,
+                                                        route):
+    """Both routes, the same bytes as the plain version (the reference's
+    DPs' bytes, tests/test_torch_knapsack.py) and as a second call."""
+    kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
+    v, s = _knapsack_inputs(kind, n, qcap, n + qcap)
+    before = kdp.launches
+    keep = kdp.knapsack_dp(v, s, qcap, route=route)
+    again = kdp.knapsack_dp(v, s, qcap, route=route)
+    torch.cuda.synchronize()
+    assert kdp.launches == before + 2
+    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, qcap))
+    assert torch.equal(keep, again)
+
+
+def test_knapsack_dp_route_2_takes_grids_past_shared_memory(cuda):
+    kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
+    v, s = _knapsack_inputs("planner", 400, 100_000, 5)
+    assert kdp.pick_route(100_000) == 2
+    keep = kdp.knapsack_dp(v, s, 100_000)
+    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, 100_000))
+    with pytest.raises(RuntimeError, match="route 1"):
+        kdp.knapsack_dp(v, s, 100_000, route=1)
+
+
+@pytest.mark.parametrize("kind,n,qcap", [("ties", 2000, 1500),
+                                         ("edges", 300, 1000)])
+def test_knapsack_dp_kernel_ignores_stale_shared_memory(cuda, kind, n, qcap):
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
+    v, s = _knapsack_inputs(kind, n, qcap, 7)
+    da.fill_shared_memory_nan(v.device)
+    keep = kdp.knapsack_dp(v, s, qcap, route=1)
+    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, qcap))
+
+
+def test_planner_with_the_device_dp_on_card_builds_the_numpy_plan(cuda):
+    """The 2,000-chunk fixture: the global search's knapsack is 2,000 items
+    over 16,384 cells (32.8M), above the threshold."""
+    from repro_torch.core import knapsack
+    from repro_torch.kernels import ops
+    from repro_torch.sim import planner_fixture
+    plans = []
+    for on in (False, True):
+        knapsack.use_device, knapsack.dp_device = on, "cuda"
+        ops.reset_launch_counts()
+        try:
+            fx = planner_fixture.build_chunk_fixture(2000)
+            plans.append(planner_fixture.plan_program(
+                *fx[:3], 256 * 1024 ** 2).to_json())
+        finally:
+            knapsack.use_device = False
+        assert ops.launch_counts()["knapsack_dp"] == (2 if on else 0)
+    assert plans[0] == plans[1]
