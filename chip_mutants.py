@@ -19,6 +19,12 @@ command line run those mutants only.  The mutants:
   masked), ``group_split_fixed_8`` (a stacked row's position is taken as
   row / 8 where row / G belongs: right up to G 8, so only the G 16 checks
   see it);
+- bf16 flash-attention forward at the dry run's lengths (the flash pair at
+  each train cell's fitted microbatch, q x 8, and the forward at each
+  prefill cell's shape on three query tiles; the fitted rows at q x 1 are
+  printed beside them as ``peak1_ok`` and decide nothing):
+  ``long_key_tile_dropped`` (key tile 1 left out of every block that
+  reads more than 16 key tiles: unseen at the short checks' lengths);
 - decode attention (the decode checks at the serving shapes, phi-3-
   vision-4.2b's D 96 and nemotron-4-340b's G 12, D 192 among them, G =
   16, peaked scores and behind a NaN fill of shared memory): ``merge_weight_dropped`` (the splits' partials are
@@ -118,6 +124,11 @@ MUTANTS = {
         FLASH, "const int qpos[2] = {(r0 + ra) / G, (r0 + ra + 8) / G};",
         "const int qpos[2] = {(r0 + ra) / min(G, 8), "
         "(r0 + ra + 8) / min(G, 8)};", "flash"),
+    "long_key_tile_dropped": (
+        FLASH, "      // online softmax on the fp32 scores\n",
+        "      if (i == 1 && n_tiles > 16)\n"
+        "        for (int v = 0; v < kN / 2; ++v) s[v] = -INFINITY;\n"
+        "      // online softmax on the fp32 scores\n", "flash_long"),
     "merge_weight_dropped": (
         DECODE,
         "      const float w = mx == -INFINITY ? 0.f : exp2f(wgt[s][g] - mx);",
@@ -248,6 +259,25 @@ for c in [(1, 1, 1, 128, 128, 128, True), (1, 1, 1, 128, 128, 128, False),
     fwd, _ = cs._flash_case(timer, torch.bfloat16, *c[:7], gen, *c[7:])
     print(json.dumps(dict(case=c, ok=fwd["ok"], err=fwd["max_abs_err"],
                           lse_err=fwd["lse_max_abs_err"])), flush=True)
+''',
+    # chip_smoke.py's flash rows at the dry run's lengths: the fitted train
+    # microbatches (q x 8 decides; q x 1 beside it, "peak1_ok") and the
+    # prefill cells' forward on sampled query tiles
+    "flash_long": _HEAD + r'''
+timer = cs.Timer()
+for shape in dict.fromkeys(cs._fitted_flash_shapes()):
+    one = cs._flash_case(None, torch.bfloat16, *shape, True, gen)
+    eight = cs._flash_case(None, torch.bfloat16, *shape, True, gen, peak=8.0)
+    for a, b in zip(one, eight):
+        print(json.dumps(dict(case=shape, kernel=b["kernel"], ok=b["ok"],
+                              err=b["max_abs_err"], peak1_ok=a["ok"],
+                              peak1_err=a["max_abs_err"])), flush=True)
+    torch.cuda.empty_cache()
+for cell, shape in cs._prefill_flash_shapes():
+    r = cs._flash_long_case(timer, gen, cell, *shape)
+    print(json.dumps(dict(case=cell, ok=r["ok"], err=r["max_abs_err"])),
+          flush=True)
+    torch.cuda.empty_cache()
 ''',
     # chip_smoke.py's decode check cases, untimed, and those behind a NaN
     # fill of shared memory

@@ -56,6 +56,14 @@ result line) if any phase fails:
                chatglm3-6b's over 32,768 rows, and zamba2-1.2b's long_500k
                over 524,288 bf16 rows), fp32 q at TOL[fp32] and bf16 q
                also against float64 within 2^-7 of the largest output;
+               the flash forward at each dry-run prefill_32k cell's
+               attention shape (gemma-2b's q (1, 1, 8, 32768, 256),
+               zamba2-1.2b's (1, 32, 1, 32768, 64), musicgen-large's
+               (2, 32, 1, 32832, 64) with a ragged last tile), q x 8, on
+               three sampled query tiles, and the flash pair at each
+               dry-run train cell's fitted microbatch, q x 8; the SSD
+               forward at
+               zamba2-1.2b's prefill_32k shape (B 1, S 32,768);
                tiered_matmul at M = 128 on gemma-2b's, chatglm3-6b's and
                xlstm-350m's decode products and at M = 1 on the long_500k
                cells' (zamba2-1.2b's and xlstm-350m's); and what
@@ -96,11 +104,22 @@ result line) if any phase fails:
                one knapsack_dp launch a solve above the threshold, and the
                build's wall time both ways;
 6b. dryrun  -- ``launch/dryrun.py``'s fit prediction of every (config x
-               decode shape) cell, then each cell predicted to fit run at
+               shape) cell, then each decode cell predicted to fit run at
                full width and depth (gemma-2b and chatglm3-6b decode_32k
                in e4m3, zamba2-1.2b long_500k in bf16, xlstm-350m both)
                with its attribution, a profile of its steps and its
-               roofline row (``launch/roofline.py``);
+               roofline row (``launch/roofline.py``); then the train_4k
+               and prefill_32k cells of DRYRUN_STEP_CELLS at full width
+               and depth (gemma-2b train_4k in offload mode, zamba2-1.2b
+               train_4k fused, 2 fitted microbatches a step; gemma-2b and
+               zamba2-1.2b prefill_32k at batch 1, musicgen-large's at
+               batch 2; musicgen-large, phi-3-vision-4.2b, yi-6b and
+               chatglm3-6b train_4k), each one required to run, with its
+               cost probes, its offload slice, its
+               attribution and its roofline row: measured peak within the
+               prediction and the prediction at most 1.25 x it, the
+               launches of a microbatch, the probes' extrapolation within
+               25 % of the measured microbatch, all required;
 7. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
                served under the runtime, with every kernel launch counted;
 8. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
@@ -352,6 +371,16 @@ TIMED_FLASH_SHAPES = (TRAIN_SHAPE, ZAMBA_FLASH_SHAPE, YI_FLASH_SHAPE,
                       GLM_FLASH_SHAPE, DBRX_FLASH_SHAPE, MUSICGEN_FLASH_SHAPE,
                       PHI3V_FLASH_SHAPE, PHI3V_FRONT_FLASH_SHAPE,
                       NEMOTRON_FLASH_SHAPE)
+# the dry run's prefill_32k cells: their attention (32,768 positions and
+# more, 8 times the longest sequence a train path runs; the shapes from
+# DRYRUN_STEP_CELLS, ``_prefill_flash_shapes``) held against its plain
+# version on query tiles of LONG_FLASH_TILE rows (the first, one in the
+# middle and the last, which reads every key: the plain version over all
+# rows of gemma-2b's would build 34 GB of scores); and zamba2-1.2b's SSD
+# forward over 32,768 positions (64 heads, N = P = 64, k and q broadcast
+# over the heads)
+LONG_FLASH_TILE = 128
+SSD_PREFILL_SHAPE = (1, 64, 32768, 64, 64, 256)   # B, H, S, N, P, chunk
 # the train paths of the 6-billion-parameter configs keep this many layers
 # and train at this rate: Adam's first steps move every weight by about lr,
 # so a layer's output by about fan-in x lr, and at d_model 4096 the losses
@@ -1057,8 +1086,8 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen, peak=1.0):
     """Forward kernel against the plain forward (output and log-sum-exp);
     backward kernel against autograd through the plain forward; q scaled by
     ``peak`` (8: peaked scores, so the running max moves between key tiles
-    and a missing rescale shows).  Float64 columns and times at the two
-    training shapes only."""
+    and a missing rescale shows).  Float64 columns and times at
+    TIMED_FLASH_SHAPES only, and only given a ``timer``."""
     mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                     device="cuda").to(dtype)
     q, k, v = (mk(B, K, G, S, D) * peak).to(dtype), mk(B, K, T, D), mk(
@@ -1083,7 +1112,7 @@ def _flash_case(timer, dtype, B, K, G, S, T, D, causal, gen, peak=1.0):
                dq_dk_dv_max_abs_err=[e for e, _ in g_err],
                tol=BWD_TOL[dtype], ok=all(o for _, o in g_err))
     del leaves, plain, plain_lse, want
-    if (B, K, G, S, T, D) in TIMED_FLASH_SHAPES:
+    if timer is not None and (B, K, G, S, T, D) in TIMED_FLASH_SHAPES:
         size = q.element_size()
         pairs = B * K * G * _visible_pairs(S, T, causal)
         io = (2 * q.numel() + 2 * k.numel()) * size + lse.numel() * 4
@@ -1588,6 +1617,139 @@ def _knapsack_cases(timer) -> list:
     return rows
 
 
+def _prefill_flash_shapes() -> list:
+    """(cell, (B, K, G, S, D)): the flash forward's shape at each prefill
+    cell of DRYRUN_STEP_CELLS, at the batch it runs (S: the shape's
+    positions and the config's frontend positions)."""
+    out = []
+    for arch, shape, cuts in DRYRUN_STEP_CELLS:
+        if shape != "prefill_32k":
+            continue
+        acfg = get_config(arch)
+        K = acfg.n_kv_heads
+        out.append((f"{arch}:{shape}", (
+            cuts["batch"], K, acfg.n_heads // K,
+            dryrun.SHAPES[shape].seq_len + acfg.frontend_tokens,
+            acfg.resolved_head_dim)))
+    return out
+
+
+def _flash_long_case(timer, gen, cell, B, K, G, S, D) -> dict:
+    """The flash forward of prefill cell ``cell`` at (B, K, G, S, D) in
+    bf16, q x 8 (peaked scores: the running max moves across the key
+    tiles), against its plain version on three query tiles
+    (``flash_attention_plain_rows``): the first, one in the middle and the
+    last, ragged where S is no multiple of LONG_FLASH_TILE; timed with its
+    bound, SDPA beside it and the plain version's ms over the three
+    tiles."""
+    tile = LONG_FLASH_TILE
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+    q = (mk(B, K, G, S, D) * 8.0).to(torch.bfloat16)
+    k, v = mk(B, K, S, D), mk(B, K, S, D)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    tiles = [(r0, min(r0 + tile, S))
+             for r0 in (0, (S // 2 // tile) * tile, (S - 1) // tile * tile)]
+    errs, lse_errs, oks = [], [], []
+    for r0, r1 in tiles:
+        p_out, p_lse = fa.flash_attention_plain_rows(q, k, v, r0, r1)
+        e, ok = _compare(out[..., r0:r1, :], p_out, torch.bfloat16)
+        le, lok = _compare(lse[..., r0:r1], p_lse, torch.float32)
+        errs.append(e)
+        lse_errs.append(le)
+        oks.append(ok and lok)
+        del p_out, p_lse
+    torch.cuda.synchronize()
+    shape = dict(B=B, K=K, G=G, S=S, T=S, D=D, causal=True, peak=8.0,
+                 tiles=[list(t) for t in tiles])
+    row = dict(phase="check", kernel="flash_attention", dtype="bfloat16",
+               shape=shape, prefill_cell=cell, max_abs_err=max(errs),
+               tile_max_abs_err=errs,
+               lse_max_abs_err=max(lse_errs), tol=TOL[torch.bfloat16],
+               against="the plain version on the sampled query tiles",
+               ok=all(oks))
+    pairs = B * K * G * _visible_pairs(S, S, True)
+    io = (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+    row["bound_ms"], row["bound_by"] = bound_ms(io, 4.0 * D * pairs,
+                                                torch.bfloat16)
+    row["ms"] = timer(lambda: fa.flash_attention_fwd(q, k, v, True), 5, 1)
+    row["plain_ms_sampled_tiles"] = timer(lambda: [
+        fa.flash_attention_plain_rows(q, k, v, r0, r1)
+        for r0, r1 in tiles], 3, 1)
+    q4 = q.view(B, K * G, S, D)
+    k4, v4 = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 5, 1)
+    del q, k, v, out, lse, q4, k4, v4
+    return row
+
+
+def _ssd_prefill_case(timer, gen) -> dict:
+    """The SSD forward at SSD_PREFILL_SHAPE (zamba2-1.2b's prefill_32k at
+    batch 1, decays near 1, k and q broadcast over the heads, no initial
+    state) against its plain version at SSD_TOL: y, the final state and
+    the chunk states; also without the chunk states, as the model's
+    forward without gradients calls it.  Timed with its bound."""
+    B, H, S, N, P, chunk = SSD_PREFILL_SHAPE
+    lo, hi = SSD_DECAY_RANGE
+    a = torch.exp(-(lo + (hi - lo) * torch.rand((B, S, H), generator=gen,
+                                                device="cuda")))
+    k, q = (torch.randn((B, S, N), generator=gen, device="cuda")[
+        :, :, None].expand(B, S, H, N) * 0.3 for _ in range(2))
+    v = torch.randn((B, S, H, P), generator=gen, device="cuda") * 0.3
+    a, k, v, q = (t.transpose(1, 2) for t in (a, k, v, q))
+    y, fin, states = ssd.ssd_scan_fwd(a, k, v, q, chunk, save_states=True)
+    y2, fin2 = ssd.ssd_scan_fwd(a, k, v, q, chunk)[:2]
+    py, pfin, pstates = ssd._plain_forward(a, k, v, q, chunk)
+    torch.cuda.synchronize()
+    errs = [_compare(x, w, torch.float32, {torch.float32: SSD_TOL})
+            for x, w in ((y, py), (fin, pfin), (states, pstates),
+                         (y2, py), (fin2, pfin))]
+    shape = dict(B=B, H=H, S=S, N=N, P=P, chunk=chunk, bcast=True,
+                 decay="near1", stale_nan=False, v_row=P)
+    row = dict(phase="check", kernel="ssd_scan", dtype="float32",
+               shape=shape, prefill_cell="zamba2-1.2b:prefill_32k",
+               max_abs_err=max(e for e, _ in errs),
+               y_final_states_max_abs_err=[e for e, _ in errs[:3]],
+               no_states_max_abs_err=[e for e, _ in errs[3:]],
+               tol=SSD_TOL, ok=all(o for _, o in errs))
+    nc = -(-S // chunk)
+    f_flops, _ = _ssd_work(B, H, S, N, P, chunk)
+    f_bytes = ((a.numel() + 2 * v.numel() + B * H * (nc + 1) * N * P) * 4
+               + 2 * k[:, 0].numel() * 4)
+    row["bound_ms"], row["bound_by"] = bound_ms(f_bytes, f_flops,
+                                                torch.float32)
+    row["bound_tc_ms"] = 3 * f_flops / TF32_PEAK * 1e3
+    row["ms"] = timer(lambda: ssd.ssd_scan_fwd(a, k, v, q, chunk,
+                                               save_states=True), 10)
+    row["plain_ms"] = timer(lambda: ssd._plain_forward(a, k, v, q, chunk),
+                            3, 1)
+    row["library_ms"] = None
+    del a, k, v, q, y, fin, states, py, pfin, pstates, y2, fin2
+    return row
+
+
+def _fitted_flash_shapes() -> list:
+    """The flash pair's shape at each dry-run train cell's fitted
+    microbatch on this card (B // microbatches sequences of seq_len +
+    frontend_tokens positions), from the fit's prediction."""
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    out = []
+    for arch, shape, _ in DRYRUN_STEP_CELLS:
+        if shape != "train_4k":
+            continue
+        acfg = get_config(arch)
+        rec = dryrun.run_cell(arch, shape, hbm_bytes=hbm, predict_only=True)
+        if not rec["fits_hbm"]:
+            continue
+        b = rec["batch"] // rec["microbatches"]
+        S = rec["seq_len"] + acfg.frontend_tokens
+        K = acfg.n_kv_heads
+        out.append((b, K, acfg.n_heads // K, S, S,
+                    acfg.resolved_head_dim))
+    return out
+
+
 def phase_check(timer) -> list:
     """Every kernel against its plain version; returns all check rows."""
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 stays fp32
@@ -1743,6 +1905,19 @@ def phase_check(timer) -> list:
                   (2, 32, 1, 2112, 2112, 64)):
         rows += _flash_case(timer, torch.bfloat16, *shape, True, gen)
         torch.cuda.empty_cache()
+    # the dry run's train cells' fitted microbatches, q x 8 (the flash pair
+    # at each shape, once: at these lengths a bf16 output of unit-variance
+    # scores is about as small as TOL, and peaked scores make a lost key
+    # tile show), its prefill cells' 32,768 positions and more
+    for shape in dict.fromkeys(_fitted_flash_shapes()):
+        rows += [dict(r, fitted_microbatch=True) for r in _flash_case(
+            None, torch.bfloat16, *shape, True, gen, peak=8.0)]
+        torch.cuda.empty_cache()
+    for cell, shape in _prefill_flash_shapes():
+        rows.append(_flash_long_case(timer, gen, cell, *shape))
+        torch.cuda.empty_cache()
+    rows.append(_ssd_prefill_case(timer, gen))
+    torch.cuda.empty_cache()
     zr = zcfg.reduced()
     for decay in ("strong", "near1"):
         for B, H, S, N, P, chunk, bcast in (
@@ -2466,27 +2641,168 @@ def _dryrun_expected(cfg, rec) -> dict:
     return {k: float(n) for k, n in counts.items() if n}
 
 
+#: the dry run's train and prefill cells run on the card, in this order,
+#: each one required to run: (arch, shape, run_cell's cuts).  Each train
+#: cell runs 2 of its fitted microbatches a step; each prefill cell at batch 1 but
+#: musicgen-large's, at MUSICGEN_PREFILL_BATCH (whole, 32 x 32,768, is
+#: predicted to fit, but its forward would take ~35 s: 4.34 s at batch 4 on
+#: an H100; the run's time limit).  xlstm-350m's train cell stays a
+#: prediction: its sLSTM's per-position loop (ROADMAP item D) makes a
+#: microbatch of 8 x 4,096 tens of seconds.
+MUSICGEN_PREFILL_BATCH = 2
+DRYRUN_STEP_CELLS = [
+    ("gemma-2b", "train_4k", dict(microbatches_run=2)),
+    ("zamba2-1.2b", "train_4k", dict(microbatches_run=2)),
+    ("gemma-2b", "prefill_32k", dict(batch=1)),
+    ("zamba2-1.2b", "prefill_32k", dict(batch=1)),
+    ("musicgen-large", "prefill_32k", dict(batch=MUSICGEN_PREFILL_BATCH)),
+    ("musicgen-large", "train_4k", dict(microbatches_run=2)),
+    ("phi-3-vision-4.2b", "train_4k", dict(microbatches_run=2)),
+    ("yi-6b", "train_4k", dict(microbatches_run=2)),
+    ("chatglm3-6b", "train_4k", dict(microbatches_run=2))]
+#: the most a fit's prediction may lie above the measured peak, so that
+#: the fit loop does not turn away cells that fit; and the most the cost
+#: probes' extrapolation may lie from the measured full-depth microbatch
+DRYRUN_PEAK_SLACK = 1.25
+DRYRUN_EXTRAP_TOL = 0.25
+DRYRUN_PREDICTION_ONLY = {
+    "xlstm-350m|train_4k|1xH100":
+        "prediction only: the sLSTM's per-position loop (ROADMAP item D) "
+        "makes a microbatch of 8 x 4,096 tens of seconds"}
+
+
+def _step_expected(cfg, kind: str) -> dict:
+    """Kernel launches of one train microbatch (a training step's,
+    ``_expected_launches``) or of one prefill forward: one flash forward an
+    attention layer (zamba2: a shared-block application), one SSD forward
+    a Mamba-2 layer."""
+    if kind == "train":
+        counts = _expected_launches(cfg, "train", 1)
+    else:
+        counts = dict.fromkeys(ops.launch_counts(), 0)
+        L = cfg.n_layers
+        if cfg.block_pattern == "attn":
+            counts["flash_attention"] = L
+        elif cfg.block_pattern == "mamba_shared_attn":
+            counts["flash_attention"] = -(-L // cfg.attn_every)
+            counts["ssd_scan"] = L
+    return {k: float(n) for k, n in counts.items() if n}
+
+
+def _step_cell_checks(cfg, rec, pred) -> None:
+    """A train or prefill cell that ran: as predicted, within the
+    prediction and not far under it, finite, the launches of its program,
+    the probes' extrapolation near the measured microbatch, the offload
+    slice within its prediction, the attribution's objects."""
+    cid, mem = rec["cell"], rec["memory"]
+    require(rec["ran"] and rec["mode"] == pred["mode"]
+            and rec["microbatches"] == pred["microbatches"],
+            f"{cid} predicted to fit ran in its predicted mode "
+            f"{pred['mode']} with {pred['microbatches']} microbatches")
+    require(mem["measured_peak_bytes"] <= mem["peak_bytes"]
+            <= DRYRUN_PEAK_SLACK * mem["measured_peak_bytes"],
+            f"{cid}: measured peak {mem['measured_peak_bytes']} within the "
+            f"prediction {mem['peak_bytes']}, which lies at most "
+            f"{DRYRUN_PEAK_SLACK} x above it")
+    kind = "prefill" if rec["mode"] == "prefill" else "train"
+    if kind == "prefill":
+        S = rec["seq_len"] + cfg.frontend_tokens
+        require(rec["logits_finite"] and rec["logits_shape"] == [
+            rec["batch"], S, cfg.vocab_size],
+            f"{cid}: finite logits (batch, positions, vocab)")
+    else:
+        require(rec["loss_finite"] and math.isfinite(rec["grad_norm"]),
+                f"{cid}: finite loss and gradient norm")
+    expect = _step_expected(cfg, kind)
+    require(rec["launches_per_microbatch"] == expect,
+            f"{cid}: launches a microbatch {rec['launches_per_microbatch']}"
+            f" == {expect}")
+    ri = rec["roofline_inputs"]
+    L1, L2 = ri["probe_layers"]
+    for Lp in (L1, L2):
+        want = _step_expected(dataclasses.replace(cfg, n_layers=Lp), kind)
+        require(ri["probes"][f"L{Lp}"]["launches"] == want,
+                f"{cid}: the {Lp}-layer probe's launches "
+                f"{ri['probes'][f'L{Lp}']['launches']} == {want}")
+    per_mb = rec["ms_a_step_extrapolated"] / (rec["microbatches"] or 1)
+    require(abs(per_mb - rec["ms_a_microbatch"])
+            <= DRYRUN_EXTRAP_TOL * rec["ms_a_microbatch"],
+            f"{cid}: the probes' extrapolation {per_mb:.1f} ms a microbatch "
+            f"within {DRYRUN_EXTRAP_TOL} of the measured "
+            f"{rec['ms_a_microbatch']:.1f}")
+    if rec["mode"] == "offload-grads":
+        off = rec["offload"]
+        require(off["slice_peak_measured"] and off["slice_finite"]
+                and off["slice_peak_bytes"]
+                <= off["slice_peak_bytes_predicted"],
+                f"{cid}: the AdamW slice's measured peak "
+                f"{off['slice_peak_bytes']} within its prediction "
+                f"{off['slice_peak_bytes_predicted']}, finite")
+    att = rec["unimem_attribution"]
+    require(set(att) == set(dryrun.ATTRIBUTION_OBJECTS[rec["mode"]])
+            and all(e["accesses"] > 0 for e in att.values()),
+            f"{cid}: the attribution shows {sorted(att)}")
+    if kind == "train":
+        require(rec["params_step_over_forward"] > 2.0,
+                f"{cid}: the backward's ops reach the attribution source "
+                f"(params accesses {rec['params_step_over_forward']:.2f} x "
+                "the forward's)")
+
+
+def _dryrun_steps(hbm: int, preds: dict) -> list:
+    """The train and prefill cells of DRYRUN_STEP_CELLS, each predicted to
+    fit and each run as a path with ``--attribution`` and its roofline
+    row."""
+    paths, ran = [], set()
+    for arch, shape, cuts in DRYRUN_STEP_CELLS:
+        cfg = get_config(arch)
+        cid = dryrun.cell_id(cfg, shape)
+        pred = (preds[cid] if "batch" not in cuts else dryrun.run_cell(
+            arch, shape, hbm_bytes=hbm, predict_only=True, **cuts))
+        require(pred["fits_hbm"], f"{cid} ({cuts}) is predicted to fit")
+        _free()
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, hbm_bytes=hbm, attribution=True,
+                              steps=2, **cuts)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["roofline"] = roofline.analyze(rec)
+        emit(dict(phase="dryrun", **rec))
+        _step_cell_checks(cfg, rec, pred)
+        ran.add((cid, rec["mode"]))
+        paths.append(dict(phase="dryrun:" + cid, launches=rec["launches"]))
+    for cid, mode in (("gemma-2b|train_4k|1xH100", "offload-grads"),
+                      ("zamba2-1.2b|train_4k|1xH100", "fused")):
+        require((cid, mode) in ran, f"{cid} runs in {mode} mode")
+    return paths
+
+
 def phase_dryrun() -> list:
-    """The dry run's decode cells (``launch/dryrun.py``): the fit
-    prediction of every (config x decode shape) cell, then each cell
-    predicted to fit run at full width and depth with ``--attribution``,
-    its steps profiled, and its roofline row.  Each run cell is a path:
-    its launches counted from 0 just before its timed steps.  The run
-    fails if a cell predicted to fit does not run, its measured peak
-    passes the prediction, its logits are not finite, or a step's
-    launches differ from a serve step's."""
+    """The dry run (``launch/dryrun.py``): the fit prediction of every
+    (config x shape) cell, then each decode cell predicted to fit run at
+    full width and depth with ``--attribution``, its steps profiled, and
+    its roofline row; then the train and prefill cells
+    (:func:`_dryrun_steps`).  Each run cell is a path: its launches
+    counted from 0 just before its timed steps.  The run fails if a decode
+    cell predicted to fit does not run, its measured peak passes the
+    prediction, its logits are not finite, or a step's launches differ
+    from a serve step's."""
     _free()
     hbm = torch.cuda.get_device_properties(0).total_memory
-    cells = [(a, s) for a in sorted(dryrun.ARCHS)
-             for s in dryrun.DECODE_SHAPES]
+    cells = [(a, s) for a in sorted(dryrun.ARCHS) for s in dryrun.SHAPES]
     preds = [dryrun.run_cell(a, s, hbm_bytes=hbm, predict_only=True)
              for a, s in cells]
     emit(dict(phase="dryrun_fit", hbm_bytes=hbm, cells=[
-        {k: r.get(k) for k in ("cell", "status", "kv_dtype", "fits_hbm",
-                               "memory", "reason")} for r in preds]))
+        dict({k: r.get(k) for k in ("cell", "status", "mode", "kv_dtype",
+                                    "microbatches", "fits_hbm", "memory",
+                                    "reason")},
+             attempts=[a["peak_bytes"] for a in r.get("fit_attempts", [])],
+             offload=r.get("offload"),
+             run=DRYRUN_PREDICTION_ONLY.get(r["cell"]))
+        for r in preds]))
     paths = []
     for (a, s), pred in zip(cells, preds):
-        if pred["status"] != "ok" or not pred["fits_hbm"]:
+        if (s not in dryrun.DECODE_SHAPES or pred["status"] != "ok"
+                or not pred["fits_hbm"]):
             continue
         _free()
         t0 = time.perf_counter()
@@ -2518,7 +2834,7 @@ def phase_dryrun() -> list:
         pred = next(r for r in preds if r["cell"] == cell)
         require(cell in ran and pred["kv_dtype"] == kv,
                 f"{cell} runs with its {kv} cache")
-    return paths
+    return paths + _dryrun_steps(hbm, {r["cell"]: r for r in preds})
 
 
 def phase_train(arch: str, S: int, name: str, layers: int = None,
@@ -3020,6 +3336,7 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
                          else _arch_shapes(checks, name))
         if name == "decode_attention":
             row["shapes"] += _long_shapes(checks)
+        row["shapes"] += _prefill_shapes(checks, name)
         out.append(row)
     out.append(_knapsack_line(checks, paths))
     return {"kernels": out}
@@ -3035,6 +3352,25 @@ def _long_shapes(checks) -> list:
                  bound_by=r["bound_by"], library_ms=r["library_ms"])
             for r in checks if r["kernel"] == "decode_attention"
             and "ms" in r and r["shape"]["length"] == 524288]
+
+
+def _prefill_shapes(checks, name) -> list:
+    """The forward's timed rows at the dry run's prefill_32k cells: the
+    flash forward at each cell's attention shape (its plain version over
+    three query tiles, ``plain_ms_sampled_tiles``), the SSD forward at
+    zamba2-1.2b's 64 heads."""
+    out = []
+    for r in checks:
+        if r["kernel"] != name or "prefill_cell" not in r:
+            continue
+        entry = dict(arch=r["prefill_cell"], rows=1,
+                     max_abs_err=r["max_abs_err"], ms=r["ms"],
+                     plain_ms=r.get("plain_ms"), bound_ms=r["bound_ms"],
+                     bound_by=r["bound_by"], library_ms=r["library_ms"])
+        if "plain_ms_sampled_tiles" in r:
+            entry["plain_ms_sampled_tiles"] = r["plain_ms_sampled_tiles"]
+        out.append(entry)
+    return out
 
 
 def _e4m3_shapes(checks) -> list:

@@ -60,6 +60,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_plain_rows(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, r0: int, r1: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_plain`'s arithmetic on the causal query rows
+    ``r0..r1`` alone, against the keys they see (``0..r1``): (out rows in
+    q's dtype, their log-sum-exp in fp32).  Holds a long sequence's rows
+    to the plain version without the scores of every row."""
+    D = q.shape[-1]
+    s = torch.einsum("bkgsd,bktd->bkgst",
+                     q[..., r0:r1, :].float() * (1.0 / math.sqrt(D)),
+                     k[:, :, :r1].float())
+    mask = (torch.arange(r1, device=q.device)[None, :]
+            > torch.arange(r0, r1, device=q.device)[:, None])
+    s = s.masked_fill(mask, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v[:, :, :r1].float())
+    return out.to(q.dtype), lse
+
+
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal: bool = True
                               ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's function in plain PyTorch: (dq, dk, dv) in

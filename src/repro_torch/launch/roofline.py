@@ -13,7 +13,10 @@ for fp8; the link the TP all-reduces), with the chip counts (``chips``,
 from NVIDIA's H100 SXM data sheet (dense bf16, HBM3); no link term on one
 card.  Given the reference's counts and rates its numbers come out the
 same.  Each row also carries the dry run's measured ms a step
-(``measured_ms_a_step``) beside ``step_bound_s``.
+(``measured_ms_a_step``; a train cell's ``microbatches_run`` of its
+microbatches) and, for a train or prefill cell, the cost probes' ms
+carried to the whole step (``ms_a_step_extrapolated``) beside
+``step_bound_s``.
 """
 
 from __future__ import annotations
@@ -205,6 +208,7 @@ def analyze(r: Dict, rates: Rates = H100) -> Dict:
                             for k, v in r.get("collectives_raw", {}).items()
                             if v["count"]},
         "measured_ms_a_step": r.get("ms_a_step"),
+        "ms_a_step_extrapolated": r.get("ms_a_step_extrapolated"),
     }
 
 
@@ -226,11 +230,14 @@ def main() -> None:
             print(f"{row['cell']:44s} SKIP ({row['skip'][:48]})")
             continue
         meas = row["measured_ms_a_step"]
+        ext = row["ms_a_step_extrapolated"]
         print(f"{row['cell']:44s} dom={row['dominant']:8s} "
               f"C={row['compute_s'] * 1e3:9.3f}ms "
               f"M={row['memory_s'] * 1e3:8.3f}ms "
               f"bound={row['step_bound_s'] * 1e3:8.3f}ms "
               f"measured={'not run' if meas is None else f'{meas:.3f}ms'} "
+              f"extrapolated="
+              f"{'none' if ext is None else f'{ext:.3f}ms'} "
               f"peak={row['peak_gib']:6.2f}GiB fits={row['fits']}")
 
 

@@ -54,10 +54,15 @@ def _accumulate(params, cfg, batch, microbatches: int, remat: bool,
                    for g in grads]
         for a, g in zip(acc, grads):
             a.add_(g.to(a.dtype))
+        # a microbatch's gradients go before the next one's backward: the
+        # step holds the accumulator and one microbatch's set, no more
+        # (``g`` too: the loop variable would keep the last leaf alive)
+        del grads, g
         ms.append(m)
-    grads = [a / microbatches for a in acc]
+    for a in acc:                   # the same bits as ``a / microbatches``
+        a.div_(microbatches)
     metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-    return _tree.unflatten(treedef, grads), metrics
+    return _tree.unflatten(treedef, acc), metrics
 
 
 def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,

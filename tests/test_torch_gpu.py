@@ -923,3 +923,61 @@ def test_planner_with_the_device_dp_on_card_builds_the_numpy_plan(cuda):
             knapsack.use_device = False
         assert ops.launch_counts()["knapsack_dp"] == (2 if on else 0)
     assert plans[0] == plans[1]
+
+
+# ------------------------------------------- the dry run's train and prefill
+@pytest.mark.parametrize("B,K,G,S,D", [
+    (1, 1, 8, 32768, 256),      # gemma-2b at batch 1
+    (1, 32, 1, 32768, 64),      # zamba2-1.2b at batch 1
+    (2, 32, 1, 32832, 64)])     # musicgen-large at batch 2, 64 frames
+def test_flash_forward_at_the_prefill_length_on_sampled_tiles(cuda, B, K,
+                                                               G, S, D):
+    """The dry run's prefill_32k attention at the batches the cells run, in
+    bf16 with peaked scores (q x 8): the forward kernel against the plain
+    version's arithmetic on three 128-row query tiles, the first, one in
+    the middle and the last (ragged where S is no multiple of 128), which
+    reads every key."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q = _randn((B, K, G, S, D), torch.bfloat16, 40, 8.0)
+    k = _randn((B, K, S, D), torch.bfloat16, 41)
+    v = _randn((B, K, S, D), torch.bfloat16, 42)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    for r0 in (0, S // 2 // 128 * 128, (S - 1) // 128 * 128):
+        r1 = min(r0 + 128, S)
+        p_out, p_lse = fa.flash_attention_plain_rows(q, k, v, r0, r1)
+        torch.testing.assert_close(out[..., r0:r1, :], p_out,
+                                   rtol=TOL[torch.bfloat16],
+                                   atol=TOL[torch.bfloat16])
+        torch.testing.assert_close(lse[..., r0:r1], p_lse,
+                                   rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+
+
+def test_ssd_scan_fwd_over_the_prefill_length(cuda):
+    """zamba2-1.2b's prefill_32k at batch 1: the SSD forward over 32,768
+    positions (64 heads, N = P = 64, k and q broadcast, decays near 1)
+    against its plain version, with and without the chunk states."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    a, k, v, q = _ssd_inputs(1, 64, 32768, 64, 64, 21, True, True)
+    y, fin, states = ss.ssd_scan_fwd(a, k, v, q, 256, save_states=True)
+    y2, fin2 = ss.ssd_scan_fwd(a, k, v, q, 256)[:2]
+    yp, finp, stp = ss._plain_forward(a, k, v, q, 256)
+    for got, want in ((y, yp), (fin, finp), (states, stp), (y2, yp),
+                      (fin2, finp)):
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_gemma_train_cell_peak_is_within_its_prediction(cuda):
+    """The dry run's gemma-2b train_4k cell (offload mode, full width and
+    depth), cut to 2 of its fitted microbatches a step: it runs as
+    predicted, its measured peak within the prediction and the prediction
+    at most 1.25 x it; finite loss."""
+    dryrun = importlib.import_module("repro_torch.launch.dryrun")
+    r = dryrun.run_cell("gemma-2b", "train_4k", microbatches_run=2,
+                        steps=1, probes=False)
+    mem = r["memory"]
+    assert r["ran"] and r["mode"] == "offload-grads"
+    assert r["reduced"] == {"microbatches_run": [r["microbatches"], 2]}
+    assert mem["measured_peak_bytes"] <= mem["peak_bytes"] \
+        <= 1.25 * mem["measured_peak_bytes"]
+    assert r["loss_finite"]
