@@ -164,7 +164,24 @@ result line) if any phase fails:
                tokens, at full width); nemotron-4-340b (G 12, D 192, the
                plain squared-ReLU MLP of 73728) cut to 6 of its 96 layers
                (682 GB of weights fit no tier) served as gemma-2b is;
-16. kernels -- one line with each kernel's numbers (the e4m3 route as
+16. distributed -- the distributed layer on a world of one NCCL rank
+               (``make_host_mesh``, a (1, 1) mesh, torn down at the end):
+               full-width, full-depth gemma-2b's parameters through
+               ``param_specs`` and ``distribute`` (each local shard its
+               tensor's bits); its first 2 layers checkpointed and
+               restored onto those shardings and onto the plain device
+               (the saved bits, seconds of each); gemma-2b served (one
+               request of the serve phase's shape) with and without the
+               mesh hint (the same tokens and launches a step; ms and
+               host ms a step); ``embed_lookup``'s hinted route at the
+               256,000 x 2,048 table over 2 x 2,048 tokens against the
+               plain gather (forward bits; the gradient's bits for exact
+               sums); ``tree_compressed_psum`` over a 2-layer step's
+               gradients (per leaf: sent as the CPU's quantizer gives it,
+               the error x - sent, reduced == sent; its ms and bytes);
+               ``pipeline_forward`` at S 1, M 4 through 2 blocks (the
+               blocks' bits, the flash launches);
+17. kernels -- one line with each kernel's numbers (the e4m3 route as
                ``decode_attention_e4m3``; knapsack_dp's launches from the
                planner phase).
 
@@ -210,24 +227,34 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
+from torch.distributed.tensor import distribute_tensor  # noqa: E402
+
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch import _tree, sim  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (H100_HBM_HOST, PAPER_DRAM_NVM,  # noqa: E402
                               ManualSource, ObjectRegistry,
                               OperandAttributionSource, RuntimeConfig,
                               Session, UnimemRuntime, calibrate)
 from repro_torch.core import knapsack  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.distributed.grad_compression import (  # noqa: E402
+    dequantize_int8, quantize_int8, tree_compressed_psum)
+from repro_torch.distributed.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import knapsack_dp as kdp  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, fill_shared_memory_nan)
 from repro_torch.kernels.ref import decode_attention_f64  # noqa: E402
 from repro_torch.kernels import tiered_matmul as mm  # noqa: E402
-from repro_torch.models import lm, moe, xlstm  # noqa: E402
+from repro_torch.models import common, lm, moe, xlstm  # noqa: E402
 from repro_torch.models.common import E4M3, kv_cast, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                init_opt_state)
@@ -3192,6 +3219,326 @@ def phase_planner() -> dict:
     return res
 
 
+#: the distributed phase: gemma-2b's layers in its checkpoint and its
+#: gradient step, the pipeline's microbatches and their blocks
+DIST_CKPT_LAYERS = 2
+DIST_PIPE_MICROBATCHES = 4
+DIST_PIPE_BLOCKS = 2
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its element size (so NaNs and -0
+    compare as bits)."""
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32, 8: torch.int64}[
+                                    t.element_size()])
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(_bits(a), _bits(b)))
+
+
+def _cut_blocks(params, n: int):
+    """``params`` with the stacked layers cut to the first ``n`` (views)."""
+    leaves, treedef = _tree.flatten(params["blocks"])
+    return dict(params, blocks=_tree.unflatten(treedef,
+                                               [t[:n] for t in leaves]))
+
+
+def _dist_checkpoint(mesh, params) -> dict:
+    """Full-width gemma-2b cut to DIST_CKPT_LAYERS layers saved, then
+    restored onto ``param_specs``' shardings (DTensors) and onto the plain
+    device: each leaf the saved bits both ways."""
+    small = _cut_blocks(params, DIST_CKPT_LAYERS)
+    d = os.path.join(ROOT, "build", "distributed_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    mgr = CheckpointManager(d, keep=1)
+    try:
+        t = time.perf_counter()
+        mgr.save(0, {"params": small}, blocking=True)
+        save_s = time.perf_counter() - t
+        sh = shd.shardings(mesh, shd.param_specs(mesh, small))
+        t = time.perf_counter()
+        _, placed = mgr.restore(shardings={"params": sh})
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t
+        want = _tree.leaves(small)
+        sharded_ok = all(
+            type(p).__name__ == "DTensor" and _same_bits(p.to_local(), w)
+            for p, w in zip(_tree.leaves(placed["params"]), want))
+        del placed
+        t = time.perf_counter()
+        _, plain = mgr.restore(device="cuda")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        plain_ok = all(_same_bits(p, w) for p, w in
+                       zip(_tree.leaves(plain["params"]), want))
+        del plain
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(layers=DIST_CKPT_LAYERS, leaves=len(want),
+                bytes=sum(t.numel() * t.element_size() for t in want),
+                save_s=save_s, restore_sharded_s=sharded_s,
+                restore_plain_s=plain_s, sharded_same_bits=sharded_ok,
+                plain_same_bits=plain_ok)
+
+
+def _dist_serve(mesh, cfg, params) -> dict:
+    """The serve phase's batch, prompt and new tokens (one request) without
+    the mesh hint, then with it: tokens, launches a step, wall ms a step
+    (host clock, ending in the copy to the host) and host ms a step (the
+    thread's CPU time)."""
+    B, P, n_new, S = 4, 128, 32, 1024
+    eng = ServeEngine(cfg, params, max_seq=S, batch=B, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+    steps = P + n_new
+    out = {}
+    for name, hint in (("plain", None), ("hinted", mesh)):
+        common.set_mesh_hint(hint)
+        try:
+            eng.generate(prompts[:, :8], 2).cpu()              # warm-up
+            ops.reset_launch_counts()
+            t, c = time.perf_counter(), time.thread_time()
+            toks = eng.generate(prompts, n_new).cpu()
+            wall, cpu = time.perf_counter() - t, time.thread_time() - c
+            launches = ops.launch_counts()
+        finally:
+            common.set_mesh_hint(None)
+        out[name] = dict(tokens=toks, launches=launches,
+                         launches_per_step={k: n / steps for k, n in
+                                            launches.items() if n},
+                         ms_per_step=1e3 * wall / steps,
+                         host_ms_per_step=1e3 * cpu / steps)
+    return out
+
+
+def _dist_embed(mesh, table: torch.Tensor) -> dict:
+    """``embed_lookup``'s hinted route (table and tokens as DTensors on
+    their specs, the table vocab-sharded: gemma-2b ties it) against the
+    plain gather, 2 x 2,048 tokens: the forward's bits, and the table's
+    gradient's bits for an integer-valued output gradient (every sum
+    exact, so any order of adds gives the same bits) and, for a normal
+    draw, its largest difference (the plain gather's backward rounds to
+    bf16 after each repeated row's add, the route once)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, table.shape[0], (2, 2048), generator=gen,
+                           device="cuda")
+    tspec = shd.fit(mesh, tuple(table.shape), "model", None)
+    kspec = shd.fit(mesh, tuple(tokens.shape), shd.dp_axes(mesh), None)
+    out = dict(tokens=list(tokens.shape), table=list(table.shape),
+               table_spec=repr(tspec))
+    plain_t = table.detach().clone().requires_grad_()
+    plain_x = plain_t[tokens]
+    for name, g in (
+            ("int", torch.randint(-8, 9, plain_x.shape, generator=gen,
+                                  device="cuda").to(table.dtype)),
+            ("normal", torch.randn(plain_x.shape, generator=gen,
+                                   device="cuda").to(table.dtype))):
+        plain_t.grad = None
+        plain_x.backward(g, retain_graph=True)
+        td = distribute_tensor(table.detach(), mesh,
+                               shd.placements(mesh, tspec)).requires_grad_()
+        kd = distribute_tensor(tokens, mesh, shd.placements(mesh, kspec))
+        common.set_mesh_hint(mesh)
+        try:
+            x = common.embed_lookup(td, kd, tied=True)
+            x.backward(distribute_tensor(g, mesh, x.placements))
+        finally:
+            common.set_mesh_hint(None)
+        grad = td.grad.to_local()
+        out[name] = dict(
+            forward_same_bits=_same_bits(x.to_local().detach(), plain_x),
+            grad_same_bits=_same_bits(grad, plain_t.grad),
+            grad_max_abs_err=(grad.float() - plain_t.grad.float()
+                              ).abs().max().item(),
+            grad_abs_max=plain_t.grad.float().abs().max().item(),
+            rows_touched=int(torch.unique(tokens).numel()))
+        del td, x, grad
+    return out
+
+
+def _dist_compression(mesh, cfg, params) -> dict:
+    """``tree_compressed_psum`` over the data group of the gradients of one
+    step of full-width gemma-2b cut to DIST_CKPT_LAYERS layers (batch 2 x
+    2,048, bf16): its ms (CUDA events), the bytes all-reduced (fp32: the
+    dequantized values, as the reference's psum) and the int8 codes and
+    scales they stand for; per leaf the card's sent value against the
+    CPU's quantize / dequantize of the same leaf, the error against x -
+    sent and the reduced value against sent (one rank), bit for bit."""
+    small = _cut_blocks(params, DIST_CKPT_LAYERS)
+    c2 = dataclasses.replace(cfg, n_layers=DIST_CKPT_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                        device="cuda")
+    grads, _ = build_grads_step(c2)(small, {"tokens": tok, "labels": tok})
+    group = mesh.get_group("data")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    reduced, errors = tree_compressed_psum(grads, group)
+    end.record()
+    torch.cuda.synchronize()
+    rows, int8_bytes = [], 0
+    for g, r, e in zip(_tree.leaves(grads), _tree.leaves(reduced),
+                       _tree.leaves(errors)):
+        q, s = quantize_int8(g)
+        sent = dequantize_int8(q, s, g.shape)
+        qc, sc = quantize_int8(g.cpu())
+        sent_cpu = dequantize_int8(qc, sc, g.shape)
+        int8_bytes += q.numel() + s.numel() * s.element_size()
+        rows.append(dict(
+            shape=list(g.shape), dtype=str(g.dtype).replace("torch.", ""),
+            sent_same_bits_as_cpu=_same_bits(sent.cpu(), sent_cpu),
+            error_is_x_minus_sent=_same_bits(e, g - sent),
+            reduced_is_sent=_same_bits(r, sent)))
+    return dict(leaves=len(rows), ms=start.elapsed_time(end),
+                allreduce_bytes=sum(r.numel() * r.element_size()
+                                    for r in _tree.leaves(reduced)),
+                int8_payload_bytes=int8_bytes,
+                grad_bytes=sum(g.numel() * g.element_size()
+                               for g in _tree.leaves(grads)),
+                per_leaf=rows)
+
+
+def _dist_pipeline(cfg, params) -> dict:
+    """``pipeline_forward`` on a one-rank "stage" mesh (S 1, M
+    DIST_PIPE_MICROBATCHES microbatches of 1 x 2,048) through the first
+    DIST_PIPE_BLOCKS full-width gemma-2b blocks, against those blocks
+    applied to each microbatch directly: bits, and the kernel launches of
+    the pipeline's run."""
+    S, D = 2048, cfg.resolved_head_dim
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    cos, sin = common.rope_frequencies(
+        D, S, cfg.rope_theta, rotary_dim=int(D * cfg.rotary_fraction),
+        device="cuda")
+    leaves, treedef = _tree.flatten(params["blocks"])
+    stage = _tree.unflatten(treedef, [t[None, :DIST_PIPE_BLOCKS]
+                                      for t in leaves])
+
+    def layer(p, x):
+        for blk in lm._unstack(p, DIST_PIPE_BLOCKS):
+            x = lm._block_fwd(blk, x, cos, sin, cfg)
+        return x
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = torch.randn((DIST_PIPE_MICROBATCHES, 1, S, cfg.d_model),
+                     generator=gen, device="cuda").to(torch.bfloat16)
+    fn = pipeline_forward(layer, 1, DIST_PIPE_MICROBATCHES, smesh)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        ys = fn(stage, xs)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        row = _tree.unflatten(treedef, [t[0] for t in _tree.leaves(stage)])
+        direct = torch.stack([layer(row, x) for x in xs])
+    return dict(stages=1, microbatches=DIST_PIPE_MICROBATCHES,
+                microbatch=[1, S], blocks=DIST_PIPE_BLOCKS,
+                launches=launches, same_bits=_same_bits(ys, direct),
+                out_finite=bool(torch.isfinite(ys).all().item()),
+                out_abs_max=ys.float().abs().max().item())
+
+
+def phase_distributed() -> dict:
+    """The distributed layer on a world of one NCCL rank: ``make_host_mesh``
+    (a (1, 1) ("data", "model") mesh), full-width, full-depth gemma-2b's
+    parameters through ``param_specs`` and ``distribute``; a checkpoint of
+    its first DIST_CKPT_LAYERS layers restored onto those shardings and
+    onto the plain device; gemma-2b served with and without the mesh hint;
+    ``embed_lookup``'s hinted route; ``tree_compressed_psum`` over one
+    step's gradients; ``pipeline_forward`` through two blocks.  The
+    process group is torn down at the end.  ``launches``: the hinted serve
+    and the pipeline, each counted from 0 just before it."""
+    _free()
+    t0 = time.perf_counter()
+    parts = {}
+    mesh = make_host_mesh()
+    try:
+        res = dict(phase="distributed", backend=dist.get_backend(),
+                   world_size=dist.get_world_size(),
+                   mesh=shd.axis_sizes(mesh))
+        cfg = get_config("gemma-2b")
+        params = lm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda", dtype=torch.bfloat16)
+        t = time.perf_counter()
+        specs = shd.param_specs(mesh, params)
+        dparams = shd.distribute(params, mesh, specs)
+        torch.cuda.synchronize()
+        parts["distribute"] = time.perf_counter() - t
+        res["distribute"] = dict(
+            leaves=len(_tree.leaves(params)),
+            bytes=sum(p.numel() * p.element_size()
+                      for p in _tree.leaves(params)),
+            placements=sorted({repr(tuple(d.placements))
+                               for d in _tree.leaves(dparams)}),
+            same_bits=all(_same_bits(d.to_local(), p) for d, p in zip(
+                _tree.leaves(dparams), _tree.leaves(params))))
+        del dparams
+        for name, fn, args in (
+                ("checkpoint", _dist_checkpoint, (mesh, params)),
+                ("serve", _dist_serve, (mesh, cfg, params)),
+                ("embed", _dist_embed, (mesh, params["embed"])),
+                ("compression", _dist_compression, (mesh, cfg, params)),
+                ("pipeline", _dist_pipeline, (cfg, params))):
+            t = time.perf_counter()
+            res[name] = fn(*args)
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t
+    finally:
+        common.set_mesh_hint(None)
+        dist.destroy_process_group()
+    serve, pipe = res["serve"], res["pipeline"]
+    res["launches"] = {k: serve["hinted"]["launches"][k]
+                       + pipe["launches"][k] for k in pipe["launches"]}
+    same_tokens = torch.equal(serve["plain"]["tokens"],
+                              serve["hinted"]["tokens"])
+    for run in serve.values():
+        run["sample"] = run.pop("tokens")[0, 128:144].tolist()
+    serve["same_tokens"] = same_tokens
+    comp = res["compression"]
+    per_leaf = comp.pop("per_leaf")
+    comp["leaves_ok"] = sum(all(v for k, v in r.items()
+                                if k not in ("shape", "dtype"))
+                            for r in per_leaf)
+    comp["failed_leaves"] = [r for r in per_leaf
+                             if not all(v for k, v in r.items()
+                                        if k not in ("shape", "dtype"))]
+    res["seconds_by_part"] = parts
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    ck, emb = res["checkpoint"], res["embed"]
+    require(res["backend"] == "nccl" and res["world_size"] == 1
+            and res["mesh"] == {"data": 1, "model": 1},
+            "a world of one NCCL rank, a (1, 1) mesh")
+    require(res["distribute"]["same_bits"],
+            "each distributed parameter's local shard has its bits")
+    require(ck["sharded_same_bits"] and ck["plain_same_bits"],
+            "the checkpoint restores its bits onto the shardings and plain")
+    require(same_tokens, "the same greedy tokens with and without the hint")
+    for k in ("decode_attention", "tiered_matmul"):
+        require(serve["plain"]["launches"][k] > 0
+                and serve["plain"]["launches"][k]
+                == serve["hinted"]["launches"][k],
+                f"{k} launches a step the same with and without the hint")
+    require(emb["int"]["forward_same_bits"] and emb["int"]["grad_same_bits"]
+            and emb["normal"]["forward_same_bits"]
+            and emb["normal"]["grad_max_abs_err"]
+            <= TOL[torch.bfloat16] * emb["normal"]["grad_abs_max"],
+            "the hinted embedding: the plain gather's bits forward, its "
+            "gradient's bits for exact sums, within TOL[bf16] otherwise")
+    require(comp["leaves_ok"] == comp["leaves"] > 0,
+            f"compressed psum bit for bit on every leaf "
+            f"({comp['failed_leaves']})")
+    require(pipe["same_bits"] and pipe["out_finite"]
+            and pipe["launches"]["flash_attention"]
+            == DIST_PIPE_MICROBATCHES * DIST_PIPE_BLOCKS,
+            "the pipeline: the blocks' bits, one flash forward a block "
+            "and microbatch")
+    return res
+
+
 def _knapsack_line(checks, paths) -> dict:
     """knapsack_dp's row of the kernels line: the n 2,000 row at qcap
     16,384 (the 2,000-chunk fixture's global solve), with every timed
@@ -3823,7 +4170,8 @@ def main() -> int:
         timed("train_phi3v", phase_train, "phi-3-vision-4.2b", 2048,
               "train_phi3v", PHI3V_TRAIN_LAYERS, PHI3V_TRAIN_LR),
         timed("serve_nemotron", phase_serve, "nemotron-4-340b",
-              "serve_nemotron", NEMOTRON_SERVE_LAYERS), planner] + dryrun_paths
+              "serve_nemotron", NEMOTRON_SERVE_LAYERS),
+        timed("distributed", phase_distributed), planner] + dryrun_paths
     emit(dict(phase="seconds", by_phase=seconds))
     line = kernel_line(checks, paths, parent_ms)
     emit(dict(phase="done", seconds=time.perf_counter() - t0))

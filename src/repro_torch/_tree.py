@@ -11,7 +11,7 @@ used.)
 
 from __future__ import annotations
 
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 
 class TreeDef:
@@ -25,33 +25,50 @@ class TreeDef:
         self.children = children
 
 
-def _flatten(node: Any, path: str, out: List[Tuple[str, Any]]) -> TreeDef:
+def _flatten(node: Any, keys: Tuple, out: List[Tuple[Tuple, Any]],
+             is_leaf: Optional[Callable[[Any], bool]]) -> TreeDef:
+    if is_leaf is not None and is_leaf(node):
+        out.append((keys, node))
+        return TreeDef("leaf")
     if isinstance(node, dict):
-        keys = tuple(sorted(node))
-        return TreeDef(dict, keys, tuple(
-            _flatten(node[k], f"{path}[{k!r}]", out) for k in keys))
+        ks = tuple(sorted(node))
+        return TreeDef(dict, ks, tuple(
+            _flatten(node[k], keys + (k,), out, is_leaf) for k in ks))
     if isinstance(node, (list, tuple)):
         return TreeDef(type(node), (), tuple(
-            _flatten(c, f"{path}[{i}]", out) for i, c in enumerate(node)))
+            _flatten(c, keys + (i,), out, is_leaf)
+            for i, c in enumerate(node)))
     if node is None:
         return TreeDef(None)
-    out.append((path, node))
+    out.append((keys, node))
     return TreeDef("leaf")
+
+
+def flatten_with_keys(tree: Any, is_leaf: Optional[Callable[[Any], bool]]
+                      = None) -> Tuple[List[Tuple[Tuple, Any]], TreeDef]:
+    """``([(keys, leaf), ...], treedef)`` in JAX's flatten order: ``keys``
+    the dict keys and sequence indices from the root.  ``is_leaf(node)``
+    true makes a node a leaf (as JAX's ``is_leaf``)."""
+    out: List[Tuple[Tuple, Any]] = []
+    return out, _flatten(tree, (), out, is_leaf)
 
 
 def flatten_with_path(tree: Any) -> Tuple[List[Tuple[str, Any]], TreeDef]:
     """``([(keystr, leaf), ...], treedef)`` in JAX's flatten order."""
-    out: List[Tuple[str, Any]] = []
-    return out, _flatten(tree, "", out)
+    pairs, treedef = flatten_with_keys(tree)
+    return [("".join(f"[{k!r}]" for k in keys), leaf)
+            for keys, leaf in pairs], treedef
 
 
-def flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
-    pairs, treedef = flatten_with_path(tree)
+def flatten(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+            ) -> Tuple[List[Any], TreeDef]:
+    pairs, treedef = flatten_with_keys(tree, is_leaf)
     return [leaf for _, leaf in pairs], treedef
 
 
-def leaves(tree: Any) -> List[Any]:
-    return flatten(tree)[0]
+def leaves(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+           ) -> List[Any]:
+    return flatten(tree, is_leaf)[0]
 
 
 def _up_to(td: TreeDef, node: Any, out: List[Any]) -> None:

@@ -11,10 +11,11 @@ on-disk format, so checkpoints move between the two packages.
 * **async** -- :meth:`CheckpointManager.save` copies the tensors to host
   memory and a background thread writes them; the training loop blocks
   only on the previous save.
-
-Restoring onto other shardings (the reference's elastic restore) waits
-for the sharding part of ``distributed/`` (ROADMAP.md, queue 1:
-"`distributed/`, `launch/dryrun.py` and `roofline.py`").
+* **elastic** -- leaves are saved as whole logical tensors;
+  :meth:`CheckpointManager.restore` places each onto a device or, as a
+  DTensor, onto any mesh's placements (different DP/TP extent), which is
+  what lets a job resume after losing a slice of the fleet.  Each rank
+  reads the whole file and keeps its own slice (ROADMAP P20).
 """
 
 from __future__ import annotations
@@ -23,20 +24,24 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+def _flatten(tree: Any, prefix: str = "",
+             is_leaf: Callable[[Any], bool] = lambda _: False
+             ) -> Dict[str, Any]:
     out = {}
-    if isinstance(tree, dict):
+    if is_leaf(tree):
+        out[prefix[:-1]] = tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(_flatten(v, f"{prefix}{k}/", is_leaf))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}/"))
+            out.update(_flatten(v, f"{prefix}{i}/", is_leaf))
     else:
         out[prefix[:-1]] = tree
     return out
@@ -149,13 +154,11 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, *, shardings: Any = None,
                 device="cuda") -> Tuple[int, Any]:
-        """Load a checkpoint onto ``device``.  ``shardings`` is not
-        supported on one card."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto shardings waits for the sharding part of "
-                "distributed/ (ROADMAP.md, queue 1: 'distributed/, "
-                "launch/dryrun.py and roofline.py')")
+        """Load a checkpoint.  ``shardings`` (optional) mirrors the state;
+        each of its leaves is a ``torch.device`` or a ``(DeviceMesh,
+        placements)`` pair (``distributed.sharding.shardings``), which makes
+        the leaf a DTensor holding this rank's slice: elastic restore onto
+        another topology.  A leaf it does not name goes to ``device``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -163,10 +166,43 @@ class CheckpointManager:
         data = np.load(os.path.join(path, "arrays.npz"))
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
+        flat_sh = (_flatten(shardings, is_leaf=_is_sharding)
+                   if shardings is not None else {})
         placed = {}
         for raw_key in data.files:
             k = raw_key.replace("__", "/")
             info = meta["leaves"][k]
-            placed[k] = _from_host(data[raw_key], info["dtype"],
-                                   info["shape"]).to(device)
+            v = _from_host(data[raw_key], info["dtype"], info["shape"])
+            placed[k] = _place(v, flat_sh.get(k, torch.device(device)))
         return step, _unflatten(placed)
+
+
+def _is_sharding(x: Any) -> bool:
+    return isinstance(x, torch.device) or (
+        isinstance(x, tuple) and len(x) == 2
+        and hasattr(x[0], "mesh_dim_names"))           # (DeviceMesh, ...)
+
+
+def _place(v: torch.Tensor, sharding: Any) -> torch.Tensor:
+    """``v`` on a device, or this rank's slice of it as a DTensor: cut on
+    the host, then moved (every rank loaded the same tensor, so no rank
+    sends any other a byte).  A tensor dim sharded over several mesh dims
+    is split over them in the mesh's order, as DTensor splits it."""
+    if isinstance(sharding, torch.device):
+        return v.to(sharding)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, placements = sharding
+    coord = mesh.get_coordinate()
+    local = v
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            if local.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(v.shape)} does not "
+                                 f"split {n} ways")
+            size = local.shape[p.dim] // n
+            local = local.narrow(p.dim, coord[i] * size, size)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"restore places Shard or Replicate, not {p}")
+    return DTensor.from_local(local.contiguous().to(mesh.device_type), mesh,
+                              list(placements), run_check=False)

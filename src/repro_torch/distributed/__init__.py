@@ -1,8 +1,10 @@
-"""Multi-host tier management: the cluster coordinator over per-host
-sessions.  The reference package's sharding, pipeline and gradient
-compression are still to be ported (ROADMAP.md, queue 1: "`distributed/`,
-`launch/dryrun.py` and `roofline.py`")."""
+"""The distributed layer: the sharding rules (``sharding``), the GPipe
+schedule (``pipeline``), int8 error-feedback all-reduce
+(``grad_compression``), and multi-host tier management (the cluster
+coordinator over per-host sessions)."""
 
+from . import sharding
 from .coordinator import ClusterCoordinator, HostTierManager, ShardMigration
 
-__all__ = ["ClusterCoordinator", "HostTierManager", "ShardMigration"]
+__all__ = ["sharding", "ClusterCoordinator", "HostTierManager",
+           "ShardMigration"]

@@ -7,6 +7,8 @@ fits run at full width and depth.
   python -m repro_torch.launch.dryrun --all --attribution --out DIR
   python -m repro_torch.launch.dryrun --all --predict-only --device cpu \\
       --hbm 85029158912
+  python -m repro_torch.launch.dryrun --all --predict-only --mesh 16x16 \\
+      --flat-dp --device cpu --hbm 85029158912
   python -m repro_torch.launch.dryrun --arch gemma --shape decode_32k \\
       --reduced --batch 2 --seq-len 64 --hbm 3000000000 --device cpu \\
       --attribution
@@ -57,6 +59,14 @@ reference's two cost probes (:func:`cost_probes`) and, in offload mode,
 its AdamW slice (:func:`offload_programs`).  The entry point runs on the
 card unless ``--device cpu`` is given; off the card ``--hbm`` states the
 memory the fit loop holds a cell to.
+
+``--mesh 16x16`` or ``2x16x16`` (the reference's one- and two-pod meshes,
+``--flat-dp`` its flat-DP profile) predicts each cell on that mesh from the
+sharding rules alone (:func:`mesh_cell`): one device's bytes of the
+parameters, the optimizer state and the cache, and the reference's offload
+rule with this card's memory in place of a v5e chip's.  It predicts no
+activations and runs nothing (ROADMAP P17).  ``--mesh 1``, the default, is
+the one-card dry run above.
 """
 
 from __future__ import annotations
@@ -77,12 +87,14 @@ from .. import _tree
 from ..configs import ARCHS, SHAPES, get_config
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core import H100_HBM_HOST, OperandAttributionSource, Session
+from ..distributed import sharding as shd
 from ..kernels import ops
 from ..models import lm
 from ..models.common import E4M3, kv_cast, tree_bytes
 from ..optim import AdamWConfig, adamw_update, global_norm, init_opt_state
 from ..train.step import auto_microbatches, build_grads_step, build_train_step
 from . import roofline
+from .mesh import make_production_mesh
 
 #: share of the card's memory a cell's predicted peak may take (the
 #: reference's rule)
@@ -152,8 +164,13 @@ ATTRIBUTION_OBJECTS = {"fused": ("params", "opt_state"),
                        "decode": ("params", "kv_cache")}
 
 
-def cell_id(cfg: ArchConfig, shape_name: str) -> str:
-    return f"{cfg.name}|{shape_name}|1xH100"
+#: ``--mesh`` names: the one-card dry run, and the reference's production
+#: meshes (``--multi-pod off`` and ``on``)
+MESHES = ("1", "16x16", "2x16x16")
+
+
+def cell_id(cfg: ArchConfig, shape_name: str, mesh: str = "1") -> str:
+    return f"{cfg.name}|{shape_name}|{'1xH100' if mesh == '1' else mesh}"
 
 
 def _param_shapes(cfg: ArchConfig):
@@ -764,6 +781,58 @@ def unimem_attribution(objects: Dict[str, Any], step: Callable[[], Any],
     return _summary(src.collect("step"))
 
 
+# ------------------------------------------------------------ mesh cells
+def mesh_cell(cfg: ArchConfig, shape: ShapeConfig, mesh_name: str,
+              hbm_bytes: int, flat_dp: bool = False) -> Dict[str, Any]:
+    """A cell on the reference's production mesh (``16x16`` or
+    ``2x16x16``): one device's bytes of the bf16 parameters under
+    ``param_specs``, of the optimizer state under ``opt_specs`` (train
+    cells) and of the cache under ``cache_specs`` at the shape's global
+    batch (decode cells: a bf16 KV cache, the reference's first attempt),
+    from ``shard_bytes``; the mode from the reference's offload rule,
+    ``hbm_bytes`` a chip.  No activations are predicted and nothing runs."""
+    mesh = make_production_mesh(multi_pod=mesh_name == "2x16x16")
+    n_chips = mesh.size
+    flat_before = shd.flat_dp()
+    shd.set_flat_dp(flat_dp)
+    try:
+        params = _param_shapes(cfg)
+        pspecs = shd.param_specs(mesh, params)
+        per_device = {"params": shd.shard_bytes(params, pspecs, mesh)}
+        if shape.kind == "train":
+            offload = offload_mode(cfg, hbm_bytes, n_chips)
+            mode = "offload-grads" if offload else "fused"
+            with FakeTensorMode():
+                fake = _tree.unflatten(
+                    _tree.flatten(params)[1],
+                    [torch.empty(t.shape, dtype=t.dtype)
+                     for t in _tree.leaves(params)])
+                opt = init_opt_state(fake, AdamWConfig())
+            per_device["opt_state"] = shd.shard_bytes(
+                opt, shd.opt_specs(mesh, opt, params, pspecs), mesh)
+        elif shape.kind == "prefill":
+            mode = "prefill"
+        else:
+            mode = "decode"
+            cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+            per_device["cache"] = shd.shard_bytes(
+                cache, shd.cache_specs(mesh, cfg, cache, shape.global_batch),
+                mesh)
+    finally:
+        shd.set_flat_dp(flat_before)
+    state = cfg.n_params() * OFFLOAD_STATE_BYTES
+    return {"cell": cell_id(cfg, shape.name, mesh_name), "status": "ok",
+            "mode": mode, "n_chips": n_chips, "mesh": mesh.shape,
+            "flat_dp": flat_dp, "batch": shape.global_batch,
+            "seq_len": shape.seq_len, "n_params": cfg.n_params(),
+            "per_device_bytes": per_device,
+            "state_bytes_per_chip": state / n_chips,
+            "offload_limit_bytes": OFFLOAD_SHARE * hbm_bytes,
+            "hbm_bytes": hbm_bytes, "predicted": "sharded state only",
+            "ran": False}
+
+
 # ------------------------------------------------------------------ cells
 def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
              hbm_bytes: Optional[int] = None, reduced: bool = False,
@@ -771,7 +840,8 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
              steps: int = 3, attribution: bool = False,
              predict_only: bool = False, seed: int = 0,
              microbatches_run: Optional[int] = None, probes: bool = True,
-             profile: Optional[Callable] = None) -> Dict[str, Any]:
+             profile: Optional[Callable] = None, mesh: str = "1",
+             flat_dp: bool = False) -> Dict[str, Any]:
     """One cell's record.  ``reduced``, ``batch`` and ``seq_len`` cut it
     and ``microbatches_run`` cuts a train step to that many of its fitted
     microbatches (each listed under ``reduced``); ``hbm_bytes`` defaults
@@ -779,13 +849,20 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
     that runs also runs its cost probes (an offload cell runs its AdamW
     slice in any case); ``profile(run, steps, wall_ms)``, if given, is called after the
     timed steps with a function that runs ``steps`` more and its result
-    stored under ``profile``."""
+    stored under ``profile``.  ``mesh`` other than "1" (with ``flat_dp``)
+    predicts the cell on that production mesh (:func:`mesh_cell`; with
+    ``predict_only`` only)."""
+    if mesh not in MESHES:
+        raise ValueError(f"mesh must be one of {MESHES}, not {mesh!r}")
+    if mesh != "1" and not predict_only:
+        raise ValueError("a cell on a production mesh is predicted only "
+                         "(give predict_only)")
     cfg = get_config(arch)
     cuts: Dict[str, Any] = {}
     if reduced:
         cfg, cuts["config"] = cfg.reduced(), "reduced()"
     shape = SHAPES[shape_name]
-    cid = cell_id(cfg, shape_name)
+    cid = cell_id(cfg, shape_name, mesh)
     ok, why = cfg.shape_applicable(shape)
     if not ok:
         return {"cell": cid, "status": "skipped", "reason": why}
@@ -801,6 +878,10 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
         if device != "cuda":
             raise ValueError("dryrun: give --hbm off the card")
         hbm_bytes = torch.cuda.get_device_properties(0).total_memory
+    if mesh != "1":
+        rec = mesh_cell(cfg, shape, mesh, hbm_bytes, flat_dp)
+        rec["reduced"] = cuts or None
+        return rec
     if shape.kind == "decode":
         return _decode_cell(cfg, shape, cid, cuts, device=device,
                             hbm_bytes=hbm_bytes, steps=steps,
@@ -1045,6 +1126,11 @@ def main() -> None:
                     help="a train step runs this many of its fitted "
                          "microbatches (default: all)")
     ap.add_argument("--no-probes", action="store_true")
+    ap.add_argument("--mesh", choices=MESHES, default="1",
+                    help="16x16 / 2x16x16: the reference's production mesh, "
+                         "sharded state predicted only")
+    ap.add_argument("--flat-dp", action="store_true",
+                    help="fold the model axis into DP (with --mesh)")
     ap.add_argument("--out", default=None, help="directory for JSON results")
     args = ap.parse_args()
 
@@ -1060,9 +1146,11 @@ def main() -> None:
                              attribution=args.attribution,
                              predict_only=args.predict_only,
                              microbatches_run=args.microbatches_run,
-                             probes=not args.no_probes)
+                             probes=not args.no_probes, mesh=args.mesh,
+                             flat_dp=args.flat_dp)
             except (RuntimeError, ValueError) as e:   # report, go on
-                r = {"cell": f"{a}|{s}|1xH100", "status": "error",
+                mesh = "1xH100" if args.mesh == "1" else args.mesh
+                r = {"cell": f"{a}|{s}|{mesh}", "status": "error",
                      "error": f"{type(e).__name__}: {e}"}
             results.append(r)
             print(json.dumps({k: v for k, v in r.items()

@@ -15,6 +15,42 @@ import torch.nn.functional as F
 
 from .. import _tree
 
+# ---------------------------------------------------------------------------
+# Mesh hint: the launch layer registers the active mesh so model code can
+# constrain activation shardings (batch over DP axes, hidden over "model")
+# without importing the launch layer.  ``None`` (tests, single device) makes
+# constraints no-ops.
+_MESH_HINT = None
+
+
+def set_mesh_hint(mesh) -> None:
+    global _MESH_HINT
+    _MESH_HINT = mesh
+
+
+def get_mesh_hint():
+    return _MESH_HINT
+
+
+def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Apply a sharding constraint if a mesh hint is active.
+
+    ``axes``: per-dim axis roles; "dp" expands to ("pod", "data").  A
+    DTensor is redistributed to the spec :func:`fit` gives; a plain tensor
+    is returned as it is where every mesh axis the spec keeps has size 1,
+    and raises ``ValueError`` naming the axis otherwise."""
+    mesh = _MESH_HINT
+    if mesh is None:
+        return x
+    from ..distributed import sharding as shd       # local: avoid cycle
+    from torch.distributed.tensor import DTensor
+    resolved = tuple(shd.dp_axes(mesh) if a == "dp" else a for a in axes)
+    spec = shd.fit(mesh, tuple(x.shape), *resolved)
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, shd.placements(mesh, spec))
+    shd.require_whole(mesh, spec, "shard_hint")
+    return x
+
 
 # ---------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -86,6 +122,96 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1.to(x.dtype), out2.to(x.dtype), xp], dim=-1)
+
+
+# ----------------------------------------------------------- embedding
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 tied: bool = False) -> torch.Tensor:
+    """``table[tokens]``; under a mesh hint, the reference's two sharded
+    routes over the table's local shard (:class:`_EmbedLookup`):
+
+    * untied: table d-sharded over "model" -- gather and scatter fully
+      local per d-slice, grads all-reduced over the DP axes.
+    * tied: table vocab-sharded over "model" (the head needs vocab-parallel
+      logits) -- masked local gather + all-reduce over "model".
+
+    ``table`` and ``tokens`` are DTensors placed by the route's specs (the
+    result is then a DTensor), or plain tensors where the hint leaves them
+    whole (:func:`..distributed.sharding.local`)."""
+    mesh = _MESH_HINT
+    if mesh is None:
+        return table[tokens]
+    from ..distributed import sharding as shd
+    from torch.distributed.tensor import DTensor
+
+    dp = shd.dp_axes(mesh)
+    V, d = table.shape
+    tshape = tuple(tokens.shape)
+    x_axes = (dp,) + (None,) * (len(tshape) - 1)
+    tok_spec = shd.fit(mesh, tshape, *x_axes)
+    if tied:
+        table_spec = shd.fit(mesh, (V, d), "model", None)
+        vocab_sharded = table_spec[0] is not None
+        x_spec = shd.fit(mesh, tshape + (d,), *x_axes, None)
+    else:
+        table_spec = shd.fit(mesh, (V, d), None, "model")
+        vocab_sharded = False
+        x_spec = shd.fit(mesh, tshape + (d,), *x_axes, "model")
+    t0 = tok_spec[0]
+    used = t0 if isinstance(t0, tuple) else (t0,)
+    dp_groups = [mesh.get_group(ax) for ax in
+                 (dp if isinstance(dp, tuple) else (dp,)) if ax in used]
+    local_table = shd.local(table, mesh, table_spec, "embed_lookup's table")
+    local_tok = shd.local(tokens, mesh, tok_spec, "embed_lookup's tokens")
+    start, model_group = None, None
+    if vocab_sharded:
+        start = mesh.get_local_rank("model") * local_table.shape[0]
+        model_group = mesh.get_group("model")
+    x = _EmbedLookup.apply(local_table, local_tok, start, model_group,
+                           dp_groups)
+    if isinstance(table, DTensor) or isinstance(tokens, DTensor):
+        return DTensor.from_local(x, mesh, shd.placements(mesh, x_spec),
+                                  run_check=False)
+    return x
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """The sharded lookup on local shards.  ``start``: the first vocab row
+    of a vocab-sharded table's shard (rows outside it give zeros, summed
+    over ``model_group``), or None for a table whose rows are all here.
+    The backward scatter-adds into the local rows in fp32, all-reduces
+    over ``dp_groups`` (the DP axes the tokens are split over) and casts to
+    the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, tok, start, model_group, dp_groups):
+        ctx.save_for_backward(tok)
+        ctx.meta = (tuple(table.shape), table.dtype, start, dp_groups)
+        if start is None:
+            return table[tok]
+        rel = tok - start
+        ok = (rel >= 0) & (rel < table.shape[0])
+        x = torch.where(ok[..., None], table[rel.clamp(0, table.shape[0] - 1)],
+                        table.new_zeros(()))
+        torch.distributed.all_reduce(x, group=model_group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        (rows, d), dtype, start, dp_groups = ctx.meta
+        gm = g.float().reshape(-1, d)
+        idx = tok.reshape(-1)
+        if start is not None:
+            idx = idx - start
+            ok = (idx >= 0) & (idx < rows)
+            gm = torch.where(ok[:, None], gm, gm.new_zeros(()))
+            idx = idx.clamp(0, rows - 1)
+        dt = torch.zeros((rows, d), dtype=torch.float32, device=g.device)
+        dt.index_put_((idx,), gm, accumulate=True)
+        for group in dp_groups:
+            torch.distributed.all_reduce(dt, group=group)
+        return dt.to(dtype), None, None, None, None
 
 
 # ------------------------------------------------------------- KV cache

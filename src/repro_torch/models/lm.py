@@ -46,8 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from .. import _tree
 from ..configs.base import ArchConfig
 from . import attention, mamba2, mlp as mlp_mod, moe as moe_mod, xlstm
-from .common import (dense_init, embed_init, layer_norm, rms_norm, rope_at,
-                     rope_frequencies)
+from .common import (dense_init, embed_init, embed_lookup, layer_norm,
+                     rms_norm, rope_at, rope_frequencies, shard_hint)
 
 
 # ---------------------------------------------------------------- norms
@@ -256,12 +256,13 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
     pass and keeps only its input, as the reference's
     ``jax.checkpoint(nothing_saveable)`` over the layer scan (and its
     ``jax.checkpoint`` of each sLSTM layer)."""
-    x = params["embed"][tokens]                              # (B, S, d)
+    x = embed_lookup(params["embed"], tokens, tied=cfg.tie_embeddings)
     if frontend_embeds is not None:
         fe = frontend_embeds.to(x.dtype)
         if cfg.frontend == "vision":                 # CLIP patch embeddings
             fe = torch.matmul(fe, params["frontend_proj"])
         x = torch.cat([fe, x], dim=1)                # audio: frames as is
+    x = shard_hint(x, "dp", None, "model")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern == "xlstm":
         x = _xlstm_forward(params, cfg, x, remat)
@@ -278,11 +279,12 @@ def forward(params: Dict[str, Any], cfg: ArchConfig, tokens: torch.Tensor,
                     aux = aux + a
                 else:
                     x = _apply(_block_fwd, remat, blk, x, cos, sin, cfg)
+                x = shard_hint(x, "dp", None, "model")
         else:
             x = _hybrid_forward(params, cfg, x, cos, sin, remat)
     x = _norm(params, "final_ln", x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return torch.matmul(x, head), aux
+    return shard_hint(torch.matmul(x, head), "dp", None, "model"), aux
 
 
 def _hybrid_forward(params, cfg: ArchConfig, x, cos, sin, remat: bool):
@@ -292,7 +294,8 @@ def _hybrid_forward(params, cfg: ArchConfig, x, cos, sin, remat: bool):
     for g in range(0, cfg.n_layers, cfg.attn_every):
         x = _apply(_block_fwd, remat, params["shared_attn"], x, cos, sin, cfg)
         for blk in blocks[g:g + cfg.attn_every]:
-            x = _apply(_mamba_fwd, remat, blk, x, cfg)
+            x = shard_hint(_apply(_mamba_fwd, remat, blk, x, cfg),
+                           "dp", None, "model")
     return x
 
 
@@ -309,7 +312,8 @@ def _xlstm_forward(params, cfg: ArchConfig, x, remat: bool):
     for kind, first, n in _xlstm_layout(cfg):
         if kind == "m":
             for blk in mblocks[first:first + n]:
-                x = _apply(_mlstm_fwd, remat, blk, x, cfg)
+                x = shard_hint(_apply(_mlstm_fwd, remat, blk, x, cfg),
+                               "dp", None, "model")
         else:
             x = _apply(_slstm_fwd, remat, sblocks[first], x, cfg)
     return x
@@ -349,12 +353,12 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     and values (for zamba2 also each layer's SSM state and conv window; for
     xlstm each layer's recurrent state instead) into ``cache`` in place
     and returns logits (B, V)."""
-    x = params["embed"][token]                               # (B, d)
+    x = embed_lookup(params["embed"], token, tied=cfg.tie_embeddings)
     if cfg.block_pattern == "xlstm":
         x = _xlstm_decode(params, cfg, cache, x)
         x = _norm(params, "final_ln", x, cfg)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
-        return x @ head
+        return shard_hint(x @ head, None, "model")
     rd = int(cfg.resolved_head_dim * cfg.rotary_fraction)
     cos, sin = rope_at(pos, rd, cfg.rope_theta, x.device)
     if cfg.block_pattern == "attn":
@@ -365,7 +369,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
         x = _hybrid_decode(params, cfg, cache, x, pos, cos, sin)
     x = _norm(params, "final_ln", x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ head
+    return shard_hint(x @ head, None, "model")
 
 
 def _hybrid_decode(params, cfg: ArchConfig, cache, x, pos, cos, sin):

@@ -5,8 +5,8 @@ softmax, top-k with renormalised gates, the Switch load-balancing aux
 loss, row-local capacity C with positions from a stable sort, pairs past C
 dropped, the experts' products over a dense (B, E, C, d) buffer
 (``torch.matmul``, as the reference's ``jnp.einsum``), the combine, and
-shared experts (DeepSeek/Moonlight style) run densely alongside.  Shard
-hints are dropped (one card).
+shared experts (DeepSeek/Moonlight style) run densely alongside, with
+the reference's shard hints (``common.shard_hint``).
 
 The dispatch and the combine are gathers, and so are their gradients
 (:class:`_Take`): each buffer slot takes at most one (token, k) pair and
@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .common import ACTIVATIONS, dense_init
+from .common import ACTIVATIONS, dense_init, shard_hint
 
 #: tokens a row dispatches at once (the reference's chunked-prefill MoE)
 CHUNK = 4096
@@ -174,12 +174,16 @@ def _moe_core(params: Dict[str, torch.Tensor], x: torch.Tensor,
     pair_slot, slot_pair = dispatch_maps(idx.reshape(B, S * k), E, C)
     pairs = x[:, :, None, :].expand(B, S, k, d).reshape(B, S * k, d)
     buf = _Take.apply(pairs, slot_pair, pair_slot).view(B, E, C, d)
+    buf = shard_hint(buf, "dp", "model", None, None)   # EP all-to-all here
     h = (act(torch.matmul(buf, params["w_gate"]))
          * torch.matmul(buf, params["w_up"]))
+    h = shard_hint(h, "dp", "model", None, None)
     h = torch.matmul(h, params["w_down"])                     # (B, E, C, d)
+    h = shard_hint(h, "dp", "model", None, None)
     picked = _Take.apply(h.reshape(B, E * C, d), pair_slot, slot_pair)
     picked = picked * gates.reshape(B, S * k, 1).to(x.dtype)
-    out = _sum_over_k(picked.view(B, S, k, d))
+    out = shard_hint(_sum_over_k(picked.view(B, S, k, d)),
+                     "dp", None, "model")
     if cfg.moe_shared_experts:
         out = out + _shared(params, x, act, torch.matmul)
     return out, aux

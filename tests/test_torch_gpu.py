@@ -981,3 +981,96 @@ def test_gemma_train_cell_peak_is_within_its_prediction(cuda):
     assert mem["measured_peak_bytes"] <= mem["peak_bytes"] \
         <= 1.25 * mem["measured_peak_bytes"]
     assert r["loss_finite"]
+
+
+# ------------------------------------------------- the distributed layer
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1) mesh over a world of one NCCL rank, torn down after the
+    module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _bits(t):
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tied", [True, False])
+def test_embed_lookup_hinted_route_on_nccl_gives_the_plain_bits(
+        nccl_mesh, tied, dtype):
+    """Table and tokens as DTensors on the route's specs: the forward is
+    the plain gather's bits, and so is the table's gradient for an
+    integer-valued output gradient (every sum exact)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import common
+    mesh = nccl_mesh
+    table = _randn((1000, 64), dtype, 11)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tok = torch.randint(0, 1000, (2, 64), generator=g, device="cuda")
+    dy = torch.randint(-8, 9, (2, 64, 64), generator=g,
+                       device="cuda").to(dtype)
+    tspec = (shd.fit(mesh, (1000, 64), "model", None) if tied
+             else shd.fit(mesh, (1000, 64), None, "model"))
+    td = distribute_tensor(table, mesh,
+                           shd.placements(mesh, tspec)).requires_grad_()
+    kd = distribute_tensor(tok, mesh, shd.placements(
+        mesh, shd.fit(mesh, (2, 64), shd.dp_axes(mesh), None)))
+    common.set_mesh_hint(mesh)
+    try:
+        x = common.embed_lookup(td, kd, tied=tied)
+        x.backward(distribute_tensor(dy, mesh, x.placements))
+    finally:
+        common.set_mesh_hint(None)
+    plain = table.clone().requires_grad_()
+    px = plain[tok]
+    px.backward(dy)
+    assert torch.equal(_bits(x.to_local().detach()), _bits(px.detach()))
+    assert torch.equal(_bits(td.grad.to_local()), _bits(plain.grad))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1000, 12295])
+def test_compressed_psum_on_nccl_gives_the_cpu_quantizers_bits(nccl_mesh, n,
+                                                               dtype):
+    from repro_torch.distributed.grad_compression import (
+        compressed_psum, dequantize_int8, quantize_int8)
+    x = _randn((n,), dtype, 13, scale=3.0)
+    err = _randn((n,), torch.float32, 14, scale=1e-3)
+    red, new_err = compressed_psum(x, nccl_mesh.get_group("data"),
+                                   error=err)
+    q, s = quantize_int8((x + err).cpu())
+    sent = dequantize_int8(q, s, (n,))
+    assert torch.equal(_bits(red.cpu()), _bits(sent))
+    assert torch.equal(_bits(new_err.cpu()), _bits((x + err).cpu() - sent))
+
+
+def test_elastic_restore_on_nccl_gives_the_saved_bits(nccl_mesh, tmp_path):
+    """Reduced gemma-2b's parameters saved, restored onto ``param_specs``'
+    shardings (DTensors on the card) and a leaf named by a device."""
+    from repro_torch import _tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    params = lm.init_params(get_config("gemma-2b").reduced(),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda", dtype=torch.bfloat16)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"params": params, "step": torch.tensor(4)}, blocking=True)
+    sh = shd.shardings(nccl_mesh, shd.param_specs(nccl_mesh, params))
+    _, placed = mgr.restore(shardings={"params": sh,
+                                       "step": torch.device("cpu")})
+    for got, want in zip(_tree.leaves(placed["params"]),
+                         _tree.leaves(params)):
+        assert got.to_local().is_cuda
+        assert torch.equal(_bits(got.to_local()), _bits(want))
+    assert placed["step"].device.type == "cpu" and int(placed["step"]) == 4

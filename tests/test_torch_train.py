@@ -618,8 +618,12 @@ def test_port_checkpoint_restores_bit_for_bit_in_reference(tmp_path):
     step, restored = RefCkpt(str(tmp_path)).restore()
     assert step == 3
     _same_bits(state, restored)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        mgr.restore(shardings={})
+    # leaves named by a device go there; the rest to ``device``
+    step, placed = mgr.restore(device="cpu", shardings={
+        "params": {"head": torch.device("cpu")},
+        "opt": {"mu": torch.device("cpu")}})
+    assert step == 3
+    _same_bits(placed, restored)
 
 
 # ---------------------------------------------------------------- pipeline
