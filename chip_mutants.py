@@ -41,12 +41,19 @@ command line run those mutants only.  The mutants:
   partial out of the output, its weight still in the normaliser);
 - decode attention's e4m3 route (its checks: gemma-2b's serving shape
   and the other configs' G and D, lengths 0 and 1, the NaN encoding inside
-  and past the valid rows, behind a NaN fill of shared memory, and the C
-  entry point refusing rows of 8 and 24 bytes): ``e4m3_bias_off_by_one``
-  (the decode's exponent bias 8 where e4m3 has 7: every value halved),
-  ``e4m3_nan_decoded_as_number`` (S.1111.111 decoded as +-480, not NaN),
-  ``e4m3_element_size_2`` (the launcher takes an e4m3 element for 2
-  bytes, as the bf16 route's, and launches on rows it cannot read);
+  and past the valid rows, behind a NaN fill of shared memory, every
+  finite e4m3 code in K and V, and the C entry point refusing rows of 8
+  and 24 bytes): ``e4m3_bias_off_by_one`` (every decoded value halved, as
+  an exponent bias of 8 where e4m3 has 7 gives), ``e4m3_nan_decoded_as_
+  number`` (the decode by bit operations with no NaN case: S.1111.111 as
+  +-480), ``e4m3_element_size_2`` (the launcher takes an e4m3 element for
+  2 bytes, as the bf16 route's: the tensor maps' strides double),
+  ``e4m3_second_head_tile_dropped`` (the values' product leaves heads 8-15
+  out), ``e4m3_rows_past_end_weighted`` (rows at or past a split's end
+  keep their scores), ``e4m3_tile_into_next_stage`` (a tile's copies land
+  in the ring stage of the next tile, while its own stage's barrier
+  completes), ``e4m3_pair_exchange_dropped`` (a warp pair's two halves of
+  the scores are not summed);
 - SSD-scan backward (the SSD checks with decays near 1, and those behind
   a NaN fill of shared memory): ``dloga_inter_chunk_dropped`` (the term
   X_i = e^{cum_i} q_i . S dy_i of d(log a), which carries the state from
@@ -109,6 +116,11 @@ SSD_FWD = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 MATMUL = "src/repro_torch/csrc/tiered_matmul.cu"
 KNAPSACK = "src/repro_torch/csrc/knapsack_dp.cu"
+# the e4m3 route's decode, as it stands in decode_attention.cu
+E4M3_DECODE = (
+    '  asm("{\\n.reg .b16 l, h;\\nmov.b32 {l, h}, %2;\\n"\n'
+    '      "cvt.rn.f16x2.e4m3x2 %0, l;\\ncvt.rn.f16x2.e4m3x2 %1, h;\\n}\\n"\n'
+    '      : "=r"(lo), "=r"(hi) : "r"(w));')
 # name: (source, text, replacement, checks)
 MUTANTS = {
     "corr_dropped": (FLASH, "        corr[h] = exp2f(m[h] * sl2 - base[h]);",
@@ -148,16 +160,44 @@ MUTANTS = {
     "merge_split_dropped": (
         DECODE, "      if (s < n_split) {", "      if (s < n_split && s != 1) {",
         "decode_long"),
+    # the decode: the card's conversion, then each value halved (what an
+    # exponent bias of 8 gives)
     "e4m3_bias_off_by_one": (
-        DECODE, "constexpr uint32_t kE4m3Bias = 7;",
-        "constexpr uint32_t kE4m3Bias = 8;", "decode_e4m3"),
+        DECODE, E4M3_DECODE,
+        E4M3_DECODE + "\n"
+        "  const __half2 half2 = __float2half2_rn(0.5f);\n"
+        "  __half2 l2 = __hmul2(*reinterpret_cast<__half2*>(&lo), half2);\n"
+        "  __half2 h2 = __hmul2(*reinterpret_cast<__half2*>(&hi), half2);\n"
+        "  lo = *reinterpret_cast<uint32_t*>(&l2);\n"
+        "  hi = *reinterpret_cast<uint32_t*>(&h2);", "decode_e4m3"),
+    # the decode by bit operations with no NaN case: S.1111.111 as +-480
     "e4m3_nan_decoded_as_number": (
-        DECODE,
-        "  return (b & 0x7Fu) == 0x7Fu ? __uint_as_float(0x7FC00000u) : x;",
-        "  return x;", "decode_e4m3"),
+        DECODE, E4M3_DECODE,
+        "  const uint32_t x = __byte_perm(w, 0, 0x3120);\n"
+        "  const uint32_t x8 = x << 8;\n"
+        "  lo = (x8 & 0x80008000u) | ((x8 & 0x7F007F00u) >> 1);\n"
+        "  hi = (x & 0x80008000u) | ((x & 0x7F007F00u) >> 1);\n"
+        "  const __half2 s256 = __float2half2_rn(256.f);\n"
+        "  __half2 l2 = __hmul2(*reinterpret_cast<__half2*>(&lo), s256);\n"
+        "  __half2 h2 = __hmul2(*reinterpret_cast<__half2*>(&hi), s256);\n"
+        "  lo = *reinterpret_cast<uint32_t*>(&l2);\n"
+        "  hi = *reinterpret_cast<uint32_t*>(&h2);", "decode_e4m3"),
     "e4m3_element_size_2": (
         DECODE, "    case 2: return 1;", "    case 2: return 2;",
         "decode_e4m3"),
+    "e4m3_second_head_tile_dropped": (
+        DECODE, "for (int nt = 0; nt < kNT; ++nt)   // every head tile",
+        "for (int nt = 0; nt < 1; ++nt)   // every head tile", "decode_e4m3"),
+    "e4m3_rows_past_end_weighted": (
+        DECODE,
+        "const bool v0 = 16 * sl + g < nv, v1 = 16 * sl + g + 8 < nv;",
+        "const bool v0 = true, v1 = true;", "decode_e4m3"),
+    "e4m3_tile_into_next_stage": (
+        DECODE, "    char* kt = ring + s * 2 * tile_bytes;\n",
+        "    char* kt = ring + (i + 1) % S * 2 * tile_bytes;\n", "decode_e4m3"),
+    "e4m3_pair_exchange_dropped": (
+        DECODE, "            sc[0][0][nt][e] += theirs[nt * 4 + e][lane];",
+        "            sc[0][0][nt][e] += 0.f;", "decode_e4m3"),
     "dloga_inter_chunk_dropped": (
         SSD_BWD, "      if (J == 0)\n        f += (double)ecum[I * kT + x]",
         "      if (false)\n        f += (double)ecum[I * kT + x]", "ssd_bwd"),
@@ -311,15 +351,7 @@ for r in cs._stale_shared_cases(gen):
     # chip_smoke.py's e4m3 check cases, untimed: the NaN encoding, behind
     # a NaN fill of shared memory, and the C entry point's refusals
     "decode_e4m3": _HEAD + r'''
-rows = [cs._decode_case(None, dt, B, K, G, D, T, n, True, gen, kv=cs.E4M3)
-        for dt, B, K, G, D, T, n, _ in cs.E4M3_CASES]
-rows += [cs._decode_case(None, torch.bfloat16, 4, 1, 8, 256, 1024, 160, True,
-                         gen, kv=cs.E4M3, nan=w) for w in ("inside", "past")]
-rows += [cs._decode_case(None, dt, B, K, G, D, 1024, n, True, gen,
-                         stale_nan=True, kv=cs.E4M3)
-         for dt, B, K, G, D, n in cs.E4M3_STALE_CASES]
-rows += [cs._e4m3_launcher_refuses(D) for D in (8, 24)]
-for r in rows:
+for r in cs._e4m3_cases(None, gen):
     print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
                           err=r["max_abs_err"])), flush=True)
 ''',

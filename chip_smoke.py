@@ -20,6 +20,7 @@ result line) if any phase fails:
                kernel's HGMMA
                count and the SSD forward's and backward's HMMA (TF32, the
                chunk kernels) and DMMA (fp64, the sums kernels) counts
+               (required), and the e4m3 decode kernel's HMMA count
                (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
@@ -49,7 +50,8 @@ result line) if any phase fails:
                gemma-2b's serving shape with fp32 and bf16 q, at zamba2's,
                chatglm3-6b's, dbrx-132b's and nemotron's G and D, at
                lengths 0 and 1, with the NaN encoding inside and past the
-               valid rows, behind a NaN fill of shared memory, and the C
+               valid rows, behind a NaN fill of shared memory, with every
+               finite e4m3 code in K and V at G 8 and 16, and the C
                entry point refusing rows it cannot read; decode attention
                at the main path's longest reads (both full decode_32k
                shapes the dry run serves in e4m3, gemma-2b's and
@@ -187,7 +189,9 @@ result line) if any phase fails:
 
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
-at DIR (the parent commit) in this run and puts them in the kernels line.
+at DIR (the parent commit) in this run, and decode attention's e4m3 route
+at both decode_32k shapes and gemma-2b's serving shape before and after
+this checkout's check phase, and puts them in the kernels line.
 The serve phases require every product of a decode step to be one launch
 of the tensor-core matmul kernel (the MoE layers' routed products one of
 its expert route), and report device operations a step.
@@ -554,6 +558,7 @@ def phase_device() -> dict:
 # Kernels, by name, and the tensor-core instruction each instantiation must
 # run: wgmma (HGMMA), mma.sync in bf16 or TF32 (HMMA) or in fp64 (DMMA).
 TENSOR_CORE_KERNELS = {
+    "decode_attention": {"decode_e4m3_kernel": "HMMA"},
     "tiered_matmul": {"tiered_mma_kernel": "HMMA",
                       "tiered_experts_mma_kernel": "HMMA"},
     "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
@@ -816,8 +821,9 @@ def _e4m3_launcher_refuses(D: int) -> dict:
     q = torch.zeros((1, 1, 4, D), device="cuda")
     k = torch.zeros((1, 1, 64, D), dtype=E4M3, device="cuda")
     before = da.e4m3_launches
+    heads = da._heads_per_block(4, 1)
     err = da._bind()(q.data_ptr(), k.data_ptr(), k.data_ptr(), q.data_ptr(),
-                     1, 1, 4, D, 64, 1, 64, 4, 0, 1.0,
+                     1, 1, 4, D, 64, 1, 64, heads, 0, 1.0,
                      *q.stride()[:3], *k.stride()[:3], *k.stride()[:3],
                      *q.stride()[:3], 0, 2,
                      torch.cuda.current_stream().cuda_stream)
@@ -827,6 +833,51 @@ def _e4m3_launcher_refuses(D: int) -> dict:
                 shape=dict(launcher_refuses_D=D, kv="float8_e4m3fn"),
                 cuda_error=err, max_abs_err=0.0, tol=0.0,
                 ok=err == 1 and da.e4m3_launches == before)
+
+
+# Every finite e4m3 code in K and V (subnormals and +-448 among them), at
+# gemma-2b's G 8, D 256 and chatglm3-6b's G 16, D 128, fp32 and bf16 q.
+# Row 0 of each (b, k) holds codes, row 1 zeros; length 2.  Each head's q
+# is one-hot at d = its head, sized so that the right decode of the K code
+# there gives the score ln 2 against row 1's 0 (weights 2/3 and 1/3): each
+# of the 252 nonzero codes sets one head's weights, and row 0 of V cycles
+# through all 254 codes, each output 2/3 of one.  fp32 q (TOL[fp32])
+# sees a subnormal decoded wrong; at bf16's tolerance a K code off by a
+# factor still moves every output.  (G, D)
+E4M3_EVERY_CODE_SHAPES = [(8, 256), (16, 128)]
+
+
+def _e4m3_every_code_case(dtype, G: int, D: int) -> dict:
+    codes = [c for c in range(256) if c & 0x7F != 0x7F]
+    nonzero = [c for c in codes if c & 0x7F]
+    B, T = -(-len(nonzero) // G), 64
+    kb = torch.zeros((B, T, 1, D), dtype=torch.uint8)
+    vb = torch.zeros((B, T, 1, D), dtype=torch.uint8)
+    for b in range(B):
+        row = [codes[(b * D + d) % len(codes)] for d in range(D)]
+        vb[b, 0, 0] = torch.tensor(row, dtype=torch.uint8)
+        kb[b, 0, 0] = torch.tensor(row[::-1], dtype=torch.uint8)
+        kb[b, 0, 0, :G] = torch.tensor(
+            [nonzero[(b * G + h) % len(nonzero)] for h in range(G)],
+            dtype=torch.uint8)
+    kb[:, 2:] = vb[:, 2:] = 0x38           # 1.0 past the valid rows
+    kv = kb.view(E4M3).float()
+    q = torch.zeros((B, 1, G, D))
+    for h in range(G):
+        q[:, 0, h, h] = math.log(2.0) * math.sqrt(D) / kv[:, 0, 0, h]
+    k = kb.cuda().view(E4M3).permute(0, 2, 1, 3)
+    v = vb.cuda().view(E4M3).permute(0, 2, 1, 3)
+    q = q.cuda().to(dtype)
+    out = ops.decode_attention(q, k, v, 2)
+    want = decode_attention_plain(q, k, v, 2)
+    torch.cuda.synchronize()
+    err, ok = _compare(out, want, dtype)
+    return dict(phase="check", kernel="decode_attention_e4m3",
+                dtype=str(dtype)[6:],
+                shape=dict(B=B, K=1, G=G, D=D, T=T, length=2,
+                           cache_view=True, every_code=True,
+                           kv="float8_e4m3fn"),
+                max_abs_err=err, tol=TOL[dtype], ok=ok)
 
 
 def _e4m3_cases(timer, gen) -> list:
@@ -840,6 +891,9 @@ def _e4m3_cases(timer, gen) -> list:
     rows += [_decode_case(None, dt, B, K, G, D, 1024, n, True, gen,
                           stale_nan=True, kv=E4M3)
              for dt, B, K, G, D, n in E4M3_STALE_CASES]
+    rows += [_e4m3_every_code_case(dt, G, D)
+             for dt in (torch.float32, torch.bfloat16)
+             for G, D in E4M3_EVERY_CODE_SHAPES]
     rows += [_e4m3_launcher_refuses(D) for D in (8, 24)]
     return rows
 
@@ -3589,7 +3643,8 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
     shape, with ``parent_ms`` null: the parent's kernels took N <= 64).
     ``parent_ms``: the SSD forward and backward of the checkout given with
     ``--parent`` ({"ssd_scan": ms, "ssd_scan_bwd": ms}), timed in this
-    run."""
+    run, and its e4m3 route at E4M3_PARENT_SHAPES before and after this
+    checkout's checks ({"decode_attention_e4m3": {label: [ms, ms]}})."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
                 and cond(r["dtype"], r["shape"])]
@@ -3652,6 +3707,9 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
         libs = [r["library_ms"] for r in rows]
         row["library_ms"] = None if None in libs else sum(libs)
         if name == "decode_attention_e4m3":
+            # the parent's ms at each shape, before and after the checks
+            runs = (parent_ms or {}).get(name) or {}
+            row["parent_ms"] = runs.get("gemma-2b:decode_32k")
             row["library"] = rows[0]["library"]
             row["library_bf16_sdpa_ms"] = rows[0]["library_bf16_sdpa_ms"]
             row["library_bf16_bound_ms"] = rows[0]["library_bf16_bound_ms"]
@@ -3678,7 +3736,7 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
             row["parent_ms"] = (parent_ms or {}).get(name)
         row["covers"] = covers
         row["path"] = [p for p, n in by_path.items() if n]
-        row["shapes"] = (_e4m3_shapes(checks)
+        row["shapes"] = (_e4m3_shapes(checks, runs)
                          if name == "decode_attention_e4m3"
                          else _arch_shapes(checks, name))
         if name == "decode_attention":
@@ -3720,9 +3778,10 @@ def _prefill_shapes(checks, name) -> list:
     return out
 
 
-def _e4m3_shapes(checks) -> list:
+def _e4m3_shapes(checks, parent) -> list:
     """The e4m3 route's timed rows: gemma-2b's serving shape (fp32 and
-    bf16 q) and chatglm3-6b's decode_32k shape."""
+    bf16 q) and chatglm3-6b's decode_32k shape; ``parent_ms`` the parent's
+    times of the same label ({label: [ms before, ms after]}, ``--parent``)."""
     out = []
     for r in checks:
         s = r["shape"]
@@ -3735,7 +3794,8 @@ def _e4m3_shapes(checks) -> list:
                         ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=None,
-                        library_bf16_sdpa_ms=r["library_bf16_sdpa_ms"]))
+                        library_bf16_sdpa_ms=r["library_bf16_sdpa_ms"],
+                        parent_ms=parent.get(label)))
     return out
 
 
@@ -4047,6 +4107,53 @@ print(json.dumps(dict(ssd_scan=fwd, ssd_scan_bwd=bwd)), flush=True)
 """
 
 
+# Run in a checkout's root: its own chip_smoke.Timer over its decode
+# attention's e4m3 route at E4M3_PARENT_SHAPES (the cache view drawn as
+# _decode_case draws it); prints one JSON object, label: ms.
+_E4M3_PARENT_SNIPPET = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from repro_torch.kernels import ops
+gen = torch.Generator(device="cuda").manual_seed(42)
+timer = cs.Timer()
+out = {}
+for label, dt, B, K, G, D, T, n in json.loads(sys.argv[1]):
+    dt = getattr(torch, dt)
+    kc, vc = (cs.kv_cast(torch.randn((B, T, K, D), generator=gen,
+                                     device="cuda"), cs.E4M3)
+              for _ in range(2))
+    k, v = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    q = torch.randn((B, K, G, D), generator=gen, device="cuda").to(dt)
+    out[label] = timer(lambda: ops.decode_attention(q, k, v, n))
+    del kc, vc, k, v
+    torch.cuda.empty_cache()
+print(json.dumps(out), flush=True)
+"""
+# the e4m3 route's timed shapes, labelled as _e4m3_shapes labels them:
+# (label, q dtype, B, K, G, D, T, length)
+E4M3_PARENT_SHAPES = [
+    ("gemma-2b:decode_32k", "bfloat16", 128, 1, 8, 256, 32768, 32768),
+    ("chatglm3-6b:decode_32k", "bfloat16", 128, 2, 16, 128, 32768, 32768),
+    ("gemma-2b:serving:float32", "float32", 4, 1, 8, 256, 1024, 160),
+    ("gemma-2b:serving:bfloat16", "bfloat16", 4, 1, 8, 256, 1024, 160)]
+
+
+def e4m3_ms(tree: str) -> dict:
+    """The e4m3 route at E4M3_PARENT_SHAPES through the checkout at
+    ``tree``, timed by that checkout's ``Timer`` in its own process on this
+    card: {label: ms}."""
+    out = subprocess.run([sys.executable, "-c", _E4M3_PARENT_SNIPPET,
+                          json.dumps(E4M3_PARENT_SHAPES)],
+                         cwd=os.path.abspath(tree), capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"the e4m3 route at {tree}: {out.stderr[-2000:]}")
+    ms = json.loads(out.stdout.strip().splitlines()[-1])
+    emit(dict(phase="parent_e4m3", tree=tree, ms=ms))
+    return ms
+
+
 def parent_ssd_ms(other: str) -> dict:
     """``--parent DIR``: the SSD forward and backward of the checkout at DIR
     (the parent commit, unpacked with ``git archive``) at the zamba2
@@ -4115,9 +4222,16 @@ def main() -> int:
     info = phase_device()
     timed("build", phase_build)
     timer = Timer()
+    # the parent's e4m3 route timed before and after this checkout's
+    e4m3_parent = [timed("parent", e4m3_ms, parent)] if parent else []
     checks = timed("check", phase_check, timer)
     timed("check", phase_e4m3_cast)
     parent_ms = timed("parent", parent_ssd_ms, parent) if parent else None
+    if parent:
+        e4m3_parent.append(timed("parent", e4m3_ms, parent))
+        parent_ms["decode_attention_e4m3"] = {
+            label: [run[label] for run in e4m3_parent]
+            for label in e4m3_parent[0]}
     timed("runtime", phase_runtime, timer)
     for arch, heads, head_dim in (
             ("gemma-2b", None, None), ("zamba2-1.2b", None, None),

@@ -25,8 +25,8 @@ launches = 0
 e4m3_launches = 0
 
 _HEADS = 8                  # query heads a block takes at most
-_HEADS_E4M3 = 4             # ... over an e4m3 cache (a lane's q and acc)
 _STAGES = 8                 # steps in each warp's cp.async ring
+_E4M3_SPLIT = 64            # rows an e4m3 split takes at least
 _WARPS = 4                  # warps of a block
 _MAX_SPLIT = 8              # blocks of a cluster (the portable size)
 _TARGET_BLOCKS = 264        # two blocks per SM of an H100 (132 SMs)
@@ -82,14 +82,17 @@ def _rows_per_step(D: int, elsize: int) -> int:
 
 
 def _heads_per_block(G: int, elsize: int) -> int:
-    """Query heads one block takes (1, 2, 4 or 8): all G of a KV head up to
-    8, so that each K and V row a block loads serves every one of them.
-    At G = 16 two blocks take 8 heads each and read each row once apiece
-    (the second read finds it in L2): 16 heads' q and acc would not fit a
-    lane's registers.  Over an e4m3 cache (``elsize`` 1) a lane holds 16
-    values of a row, twice the bf16 route's, so a block takes at most 4."""
-    heads, most = 1, _HEADS_E4M3 if elsize == 1 else _HEADS
-    while heads < min(G, most):
+    """Query heads one block takes: all G of a KV head, so that each K and
+    V row a block loads serves every one of them.  Over a float32 or
+    bfloat16 cache 1, 2, 4 or 8: at G = 16 two blocks take 8 heads each
+    and read each row once apiece (the second read finds it in L2), since
+    16 heads' q and acc would not fit a lane's registers.  Over an e4m3
+    cache (``elsize`` 1) one block takes every head up to 16, in 8 or 16
+    head slots of the tensor-core products."""
+    if elsize == 1:
+        return 8 if G <= 8 else 16
+    heads = 1
+    while heads < min(G, _HEADS):
         heads *= 2
     return heads
 
@@ -100,14 +103,18 @@ def _split_rows(groups: int, heads: int, D: int, elsize: int, length: int):
     Enough blocks to cover the SMs twice, and no split longer than its
     warps hold in flight at once (7 steps each); but at least 2 * heads
     rows a split (each block's partial, heads x D in fp32, is read again in
-    the merge) and a step per warp, at most 8 splits.  Every split owns
-    rows; one empty split when ``length == 0``."""
+    the merge) and a step per warp, at most 8 splits.  Over an e4m3 cache
+    one split a 64 rows, at most 8.
+    Every split owns rows; one empty split when ``length == 0``."""
     if length == 0:
         return 1, 1
-    step = _rows_per_step(D, elsize)
-    in_flight = _WARPS * (_STAGES - 1) * step
-    n = max(-(-_TARGET_BLOCKS // groups), -(-length // in_flight))
-    n = min(n, _MAX_SPLIT, max(1, length // max(2 * heads, _WARPS * step)))
+    if elsize == 1:
+        n = min(_MAX_SPLIT, -(-length // _E4M3_SPLIT))
+    else:
+        step = _rows_per_step(D, elsize)
+        in_flight = _WARPS * (_STAGES - 1) * step
+        n = max(-(-_TARGET_BLOCKS // groups), -(-length // in_flight))
+        n = min(n, _MAX_SPLIT, max(1, length // max(2 * heads, _WARPS * step)))
     rows = -(-length // n)
     return -(-length // rows), rows
 

@@ -43,7 +43,10 @@ def _quant(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     blocks = flat.view(-1, block)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    amax = blocks.abs().amax(dim=1, keepdim=True)
+    # tensor by tensor: CUDA divides by a host scalar through its
+    # reciprocal, which can land an ulp away from the CPU's quotient
+    scale = amax / amax.new_full((), 127.0)
     q = torch.round(blocks / scale.clamp(min=1e-12)).to(torch.int8)
     return q, scale.float()
 

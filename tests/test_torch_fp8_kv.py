@@ -185,13 +185,37 @@ def test_wrapper_refuses_an_e4m3_cache_it_cannot_read():
 
 @pytest.mark.parametrize("G", [1, 4, 8, 16])
 def test_e4m3_route_takes_at_most_four_heads_a_block(G):
+    """Over an e4m3 cache one block takes all G <= 16 heads of its KV head
+    (8 or 16 head slots; the name is the old rule's, at most 4), so each K
+    and V row of a (b, k) pair is read by one block of each split; the
+    bf16 route keeps its 1-8.  The splits
+    cover the valid rows with none empty, one split a 64 rows up to 8:
+    the main path's 32,768 rows take 8 splits of 4,096."""
     heads = port_da._heads_per_block(G, 1)
-    assert heads <= 4 and heads == min(4, 1 << (G - 1).bit_length())
+    assert heads >= G and heads == (8 if G <= 8 else 16)
+    assert -(-G // heads) == 1
     assert port_da._heads_per_block(G, 2) == min(8, 1 << (G - 1).bit_length())
-    for length in (1, 160, 32768):
-        n, rows = port_da._split_rows(128 * -(-G // heads), heads, 256, 1,
-                                      length)
+    for length, want in ((1, (1, 1)), (160, (3, 54)), (32768, (8, 4096))):
+        n, rows = port_da._split_rows(128, heads, 256, 1, length)
+        assert (n, rows) == want
         assert 1 <= n <= 8 and n * rows >= length > (n - 1) * rows
+
+
+def test_every_e4m3_code_round_trips_through_fp16():
+    """The route's premise: fp16 holds every e4m3 value exactly (4
+    significant bits, magnitudes 2^-9 to 448), so e4m3 -> fp32 -> fp16 ->
+    fp32 is e4m3 -> fp32 for all 256 codes, NaN to NaN, +-0 kept."""
+    codes = torch.arange(256, dtype=torch.int16).to(torch.uint8).view(E4M3)
+    wide = codes.float()
+    back = wide.half().float()
+    nan = wide.isnan()
+    assert torch.equal(nan, back.isnan())
+    assert nan.sum() == 2 and torch.equal(
+        nan.nonzero().flatten(), torch.tensor([0x7F, 0xFF]))
+    assert torch.equal(back[~nan], wide[~nan])
+    assert torch.equal(torch.signbit(back), torch.signbit(wide))
+    assert wide[~nan].abs().max() == 448.0
+    assert wide[~nan].abs()[wide[~nan] != 0].min() == 2.0 ** -9
 
 
 # ------------------------------------------------------------ decode_step

@@ -983,6 +983,27 @@ def test_gemma_train_cell_peak_is_within_its_prediction(cuda):
     assert r["loss_finite"]
 
 
+def test_adamw_int8_moments_quantize_to_the_cpus_bits(cuda):
+    """The int8 moments' block scales and codes (``optim/adamw.py``
+    ``_quant``) are the CPU's bits on the card, over 2^21 elements (8,192
+    blocks of 256) of moment-like magnitudes.  The scale written as
+    ``amax / 127.0`` fails this: CUDA divides by a host scalar as a product
+    with its reciprocal, an ulp off the quotient for some blocks."""
+    from repro_torch.optim.adamw import _quant
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(1 << 21, generator=g) * torch.exp(
+        torch.randn(1 << 21, generator=g) * 4.0)
+    q_cpu, s_cpu = _quant(x, 256)
+    q_gpu, s_gpu = _quant(x.to(cuda), 256)
+    assert torch.equal(_bits(s_gpu.cpu()), _bits(s_cpu))
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+
+
+def _bits(t):
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
+
+
 # ------------------------------------------------- the distributed layer
 @pytest.fixture(scope="module")
 def nccl_mesh():
@@ -995,11 +1016,6 @@ def nccl_mesh():
     mesh = make_host_mesh()
     yield mesh
     dist.destroy_process_group()
-
-
-def _bits(t):
-    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
-                                4: torch.int32}[t.element_size()])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
