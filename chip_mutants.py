@@ -78,13 +78,25 @@ command line run those mutants only.  The mutants:
   ``wide_ragged_p_tile_dropped`` (the backward's dv kernel is launched over
   the whole 64-column tiles of P only, so the ragged last tile -- the
   mLSTM's normalizer column -- is never written);
-- tiered_matmul (its checks at the serving shapes in both dtypes, the
-  edge cases and those behind a NaN fill of shared memory):
+- tiered_matmul (its checks at the serving shapes in both dtypes, at the
+  dry run's M = 128 products in bf16, the edge cases -- the wgmma route's
+  threshold, ragged M, K and N among them -- and those behind a NaN fill
+  of shared memory; each tensor-core case also launched into a buffer
+  whose rows past M must stay untouched):
   ``split_partial_dropped`` (the merge leaves the first K split's partial
   out), ``empty_barrier_not_awaited`` (the producer refills a ring stage
   before the consumers release it), ``last_k_tile_skipped`` (the ragged
   last 64-row stage of K is not read), ``ragged_n_unmasked`` (columns past
-  N of the last tile are written);
+  N of the last tile are written); of its warpgroup kernel
+  (``tiered_wgmma_kernel``): ``wgmma_second_warpgroup_dropped`` (both
+  warpgroups read x's first 64 rows, so rows 64-127 of a tile are rows
+  0-63's), ``wgmma_stage_released_early`` (a stage is released as soon as
+  its products are issued, before the wgmma_wait that retires them),
+  ``wgmma_last_k_stage_skipped`` (the last 64-row stage of K is never
+  read), ``wgmma_rows_past_m_stored`` (the merge stores all 128 rows of
+  the last row tile, past M), ``wgmma_x_from_next_slot`` (x's tile is read
+  from the next ring slot), ``wgmma_split_partial_dropped`` (the K splits'
+  merge leaves the first split's partial out);
 - tiered_matmul's expert route (its checks at moonshot-v1-16b-a3b's and
   dbrx-132b's decode shapes and the edge cases, both dtypes):
   ``expert_index_ignored`` (every slot's weight tiles come from expert 0),
@@ -241,6 +253,29 @@ MUTANTS = {
         "  const int kt_total = a.K / kBK;", "matmul"),
     "ragged_n_unmasked": (
         MATMUL, "min(kBN, a.N - n0)", "kBN", "matmul"),
+    "wgmma_second_warpgroup_dropped": (
+        MATMUL, "const uint32_t xa = base + wg * (64 * 128);",
+        "const uint32_t xa = base;", "matmul"),
+    "wgmma_stage_released_early": (
+        MATMUL,
+        "      hopper::wgmma_wait<1>();\n"
+        "      if (s > 0 && lane == 0)\n"
+        "        hopper::mbar_arrive(&empty[(s - 1) % kWgStages]);\n",
+        "      if (lane == 0) hopper::mbar_arrive(&empty[slot]);\n"
+        "      hopper::wgmma_wait<1>();\n", "matmul"),
+    "wgmma_last_k_stage_skipped": (
+        MATMUL, "  const int k_tiles = (a.K + kBK - 1) / kBK;",
+        "  const int k_tiles = (a.K - 1) / kBK;", "matmul"),
+    "wgmma_rows_past_m_stored": (
+        MATMUL, "  const int m_rows = min(kWgRows, a.M - row0);",
+        "  const int m_rows = kWgRows;", "matmul"),
+    "wgmma_split_partial_dropped": (
+        MATMUL, "        v[b][p] = live && p < n_split",
+        "        v[b][p] = live && 0 < p && p < n_split", "matmul"),
+    "wgmma_x_from_next_slot": (
+        MATMUL, "const uint32_t xa = base + wg * (64 * 128);",
+        "const uint32_t xa = hopper::smem_addr(ring + (slot + 1) % kWgStages"
+        " * kWgStageBytes) + wg * (64 * 128);", "matmul"),
     "expert_index_ignored": (
         MATMUL, "(kt0 + i) * kBK, ex,", "(kt0 + i) * kBK, 0,", "experts"),
     "group_rows_capped_at_8": (
@@ -366,8 +401,9 @@ for r in cs._long_decode_cases(None, gen):
                           limit64=r.get("float64_limit"))), flush=True)
 ''',
     # chip_smoke.py's tiered_matmul check cases, untimed: the reference
-    # tests' shapes and the serving products in both dtypes, the edge
-    # cases and those behind a NaN fill of shared memory
+    # tests' shapes and the serving products in both dtypes, the dry run's
+    # products at M = 128 in bf16, the edge cases and those behind a NaN
+    # fill of shared memory
     "matmul": _HEAD + r'''
 gemma, zamba = cs._path_products()
 shapes = [(256, 512, 256), (300, 700, 500), (128, 128, 128)]
@@ -377,6 +413,9 @@ shapes += [(4, K, N) for arch in ("yi-6b", "chatglm3-6b", "musicgen-large",
            for _, K, N in cs._layer_products(cs.get_config(arch))]
 rows = [cs._matmul_case(None, dt, M, K, N, gen)
         for dt in (torch.float32, torch.bfloat16) for M, K, N in shapes]
+rows += [cs._matmul_case(None, torch.bfloat16, 128, K, N, gen, label,
+                         want_route="wgmma")
+         for label, K, N in cs._m128_products()]
 for r in rows + cs._matmul_edge_cases(gen):
     print(json.dumps(dict(case=str(r["shape"]), dtype=r["dtype"], ok=r["ok"],
                           err=r["max_abs_err"],

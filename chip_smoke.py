@@ -20,8 +20,8 @@ result line) if any phase fails:
                kernel's HGMMA
                count and the SSD forward's and backward's HMMA (TF32, the
                chunk kernels) and DMMA (fp64, the sums kernels) counts
-               (required), and the e4m3 decode kernel's HMMA count
-               (required);
+               (required), the e4m3 decode kernel's HMMA count and the
+               warpgroup matmul kernel's HGMMA count (required);
 3. check    -- each kernel against its plain PyTorch version at the
                reference tests' shapes and the serving and training
                shapes of gemma-2b, zamba2-1.2b, yi-6b, chatglm3-6b,
@@ -45,8 +45,13 @@ result line) if any phase fails:
                decode attention, tiered_matmul and the SSD forward and
                backward also behind a NaN fill of shared memory;
                tiered_matmul with the route and plan each shape took, the
-               same bits from a second call, and the wrapper's host time a
-               call; decode attention's e4m3 route (an fp8 cache) at
+               same bits from a second call, no store past M (a guarded
+               buffer), and the wrapper's host time a call, both
+               tensor-core routes timed at M = 4 to 128 on gemma-2b's
+               w_gate and chatglm3-6b's w_down (where the wgmma route
+               starts to win), the wgmma route at its threshold and one
+               row below, at ragged M, K and N and behind a NaN fill; decode
+               attention's e4m3 route (an fp8 cache) at
                gemma-2b's serving shape with fp32 and bf16 q, at zamba2's,
                chatglm3-6b's, dbrx-132b's and nemotron's G and D, at
                lengths 0 and 1, with the NaN encoding inside and past the
@@ -67,7 +72,8 @@ result line) if any phase fails:
                forward at
                zamba2-1.2b's prefill_32k shape (B 1, S 32,768);
                tiered_matmul at M = 128 on gemma-2b's, chatglm3-6b's and
-               xlstm-350m's decode products and at M = 1 on the long_500k
+               xlstm-350m's decode products (the wgmma route required,
+               each also behind a NaN fill) and at M = 1 on the long_500k
                cells' (zamba2-1.2b's and xlstm-350m's); and what
                the card's own cast to e4m3 gives at the range's edges, with
                ``kv_cast`` the same bits on the card as on the CPU; the
@@ -190,13 +196,17 @@ result line) if any phase fails:
 Each phase prints one JSON object; the last line is the device object.
 ``--parent DIR`` also times the SSD forward and backward of the checkout
 at DIR (the parent commit) in this run, and decode attention's e4m3 route
-at both decode_32k shapes and gemma-2b's serving shape before and after
-this checkout's check phase, and puts them in the kernels line.
+at both decode_32k shapes and gemma-2b's serving shape, and its
+tiered_matmul at the dry run's M = 128 products, before and after this
+checkout's check phase, and puts them in the kernels line.
 The serve phases require every product of a decode step to be one launch
-of the tensor-core matmul kernel (the MoE layers' routed products one of
-its expert route), and report device operations a step.
-``--compare-matmul DIR`` only times the serving products through this
-checkout's tiered_matmul and through that of the checkout at DIR (see
+of the mma.sync matmul kernel (the MoE layers' routed products one of its
+expert route), and report device operations a step; the dry run's decode
+cells at batch 128 require each of theirs to be one launch of the
+warpgroup (wgmma) matmul kernel.
+``--compare-matmul DIR`` only times the serving products at M = 4 and the
+dry run's at M = 128 through this checkout's tiered_matmul and through
+that of the checkout at DIR (see
 ``compare_matmul``); ``--slstm-autograd`` only times one sLSTM layer's
 forward and backward with and without its written-out gradient (see
 ``slstm_autograd``); ``--trace-drops`` only counts the kernels that
@@ -560,7 +570,8 @@ def phase_device() -> dict:
 TENSOR_CORE_KERNELS = {
     "decode_attention": {"decode_e4m3_kernel": "HMMA"},
     "tiered_matmul": {"tiered_mma_kernel": "HMMA",
-                      "tiered_experts_mma_kernel": "HMMA"},
+                      "tiered_experts_mma_kernel": "HMMA",
+                      "tiered_wgmma_kernel": "HGMMA"},
     "flash_attention": {"flash_fwd_wgmma": "HGMMA"},
     "flash_attention_bwd": {"dq_wgmma": "HGMMA", "dkdv_wgmma": "HGMMA"},
     "ssd_scan": {"ssd_fwd_chunk_kernel": "HMMA",
@@ -951,18 +962,43 @@ def _host_us(fn, n: int = 1000) -> float:
     return us
 
 
-def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
+def _launch_route(x, w, route, y) -> None:
+    """One launch of ``tiered_matmul``'s C entry point on route ``route``
+    with the wrapper's plan for it, into the first M rows of ``y`` (rows of
+    N elements, at least M of them): a check's aid, which counts no
+    launch."""
+    M, K = x.shape
+    N = w.shape[1]
+    n_split, k_chunk = mm.plan(
+        M, N, K, route,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    if route == "ffma":
+        vec = N % 8 == 0 and w.data_ptr() % 16 == 0
+    else:
+        vec = K % 8 == 0 and x.data_ptr() % 16 == 0
+    err = mm._bind()(x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K,
+                     mm._ROUTES[route], n_split, k_chunk, int(vec),
+                     mm._DTYPES[x.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"tiered_matmul's {route} route launches ({err})")
+
+
+def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False,
+                 want_route=None):
     """The kernel against its plain version, with the route and plan the
-    wrapper chose; the same inputs again must give the same bits (the K
-    split is merged in a fixed order); with ``stale_nan`` every SM's shared
-    memory is filled with NaN just before the kernel, so a ring slot read
-    before its copy lands shows.  A weight of 2^31 bytes or more
-    (nemotron-4-340b's w_up and w_down): also the last row of w alone,
-    selected by an x that is 1 in its last column and 0 elsewhere, must
-    come out exactly (one product a sum), and the last column of y must
-    meet the float64 product.  Timed beside
-    the plain version and ``torch.matmul``, with the wrapper's host time a
-    call, unless ``timer`` is None."""
+    wrapper chose (``want_route``: the route it must choose); the same
+    inputs again must give the same bits (the K split is merged in a fixed
+    order); with ``stale_nan`` every SM's shared memory is filled with NaN
+    just before the kernel, so a ring slot read before its copy lands
+    shows.  On a tensor-core route, one more launch writes into a buffer
+    of 128 more rows than y, filled with 7: the first M rows must be y's
+    bits and the rows past M still 7 (a store past M writes them).  A weight of
+    2^31 bytes or more (nemotron-4-340b's w_up and w_down): also the last row
+    of w alone, selected by an x that is 1 in its last column and 0 elsewhere,
+    must come out exactly (one product a sum), and the last column of y must
+    meet the float64 product.  Timed beside the plain version and
+    ``torch.matmul``, with the wrapper's host time a call, unless ``timer`` is
+    None."""
     x = (torch.randn((M, K), generator=gen, device="cuda") * 0.1).to(dtype)
     w = (torch.randn((K, N), generator=gen, device="cuda") * 0.1).to(dtype)
     if stale_nan:
@@ -981,8 +1017,17 @@ def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
         shape=dict(M=M, K=K, N=N, product=name, stale_nan=stale_nan),
         route=route, plan=dict(n_split=n_split, k_chunk=k_chunk),
         max_abs_err=err, bit_identical_rerun=same, tol=TOL[dtype],
-        ok=ok and same)
+        ok=ok and same and route == (want_route or route))
+    if want_route:
+        row["want_route"] = want_route
     del plain, again
+    if route != "ffma":
+        guard = torch.full((M + 128, N), 7.0, dtype=dtype, device="cuda")
+        _launch_route(x, w, route, guard)
+        row["rows_past_m_untouched"] = bool(
+            (guard[M:] == 7).all().item() and torch.equal(guard[:M], out))
+        row["ok"] = row["ok"] and row["rows_past_m_untouched"]
+        del guard
     if K * N * x.element_size() >= 1 << 31:
         sel = torch.zeros_like(x)
         sel[:, -1] = 1
@@ -1012,11 +1057,11 @@ def _matmul_case(timer, dtype, M, K, N, gen, name=None, stale_nan=False):
 
 
 # tiered_matmul shapes checked untimed: the card tests' smallest and most
-# ragged ones; M = 1, 4, 8 and 9 (one block of 8 rows of x, and two) at
-# gemma-2b's w_down and zamba2-1.2b's in_proj; K not a multiple of the
-# ring's 64-row stage, one of them under one stage, one whose K splits
-# (2560 rows) outgrow the kernel's 2048-k window of x; N a multiple of 8
-# but not of 64.  (M, K, N)
+# ragged ones; M = 1, 4, 8 and 9 (one block of 8 rows of x, and from 9 on
+# the "wgmma" route) at gemma-2b's w_down and zamba2-1.2b's in_proj; K not
+# a multiple of the ring's 64-row stage, one of them under one stage, one
+# whose K splits (2560 rows) outgrow the "mma" kernel's 2048-k window of x;
+# N a multiple of 8 but not of 64.  (M, K, N)
 MATMUL_EDGE_CASES = [
     (1, 3, 5), (5, 100, 13),
     *((M, 16384, 2048) for M in (1, 4, 8, 9)),
@@ -1024,17 +1069,92 @@ MATMUL_EDGE_CASES = [
     (4, 2000, 2048), (3, 100, 264), (3, 40, 264), (4, 20000, 2048)]
 # tiered_matmul shapes run behind a NaN fill of shared memory (bf16, the
 # "mma" route): zamba2's in_proj, whose last tile loads one box of its 4,
-# and a ragged K and N.  (M, K, N)
+# and a ragged K and N; on the "wgmma" route, the same in_proj at M 128,
+# and ragged M, K and N together.  (M, K, N)
 MATMUL_STALE_CASES = [(4, 2048, 8384), (3, 100, 264)]
+WGMMA_STALE_CASES = [(128, 2048, 8384), (129, 2000, 264)]
+
+
+def _wgmma_edge_cases() -> list:
+    """(M, K, N, route) of the two tensor-core routes' untimed checks
+    round the "wgmma" route, bf16: its threshold and one row below it (the
+    "mma" route), and ragged M (65, 129, 200: a second 128-row tile, zeros
+    past M), at gemma-2b's w_gate and chatglm3-6b's w_down; at M = 128, K =
+    2000 (its last stage past K) and N = 264 (its last tile loads one box,
+    8 columns of it inside N); two blocks of 8 rows on the "mma" route (K
+    no multiple of 8: x's rows are no TMA rows)."""
+    t = mm.WGMMA_MIN_M
+    return [(M, K, N, "wgmma" if M >= t else "mma")
+            for M in (t - 1, t, 65, 129, 200)
+            for K, N in ((2048, 16384), (13696, 4096))] + [
+        (128, 2000, 2048, "wgmma"), (128, 2048, 264, "wgmma"),
+        (12, 2004, 264, "mma")]
 
 
 def _matmul_edge_cases(gen) -> list:
     rows = [_matmul_case(None, dt, M, K, N, gen)
             for dt in (torch.float32, torch.bfloat16)
             for M, K, N in MATMUL_EDGE_CASES]
-    return rows + [_matmul_case(None, torch.bfloat16, M, K, N, gen,
-                                stale_nan=True)
-                   for M, K, N in MATMUL_STALE_CASES]
+    rows += [_matmul_case(None, torch.bfloat16, M, K, N, gen,
+                          stale_nan=True)
+             for M, K, N in MATMUL_STALE_CASES]
+    # the "wgmma" route's cases draw from a generator of their own, so that
+    # every check after them draws what it drew before the route existed
+    own = torch.Generator(device="cuda").manual_seed(32)
+    rows += [_matmul_case(None, torch.bfloat16, M, K, N, own, want_route=r)
+             for M, K, N, r in _wgmma_edge_cases()]
+    return rows + [_matmul_case(None, torch.bfloat16, M, K, N, own,
+                                stale_nan=True, want_route="wgmma")
+                   for M, K, N in WGMMA_STALE_CASES]
+
+
+# where the "wgmma" route starts to win: both tensor-core routes timed at
+# these M on gemma-2b's w_gate and chatglm3-6b's w_down.  (label, K, N)
+THRESHOLD_MS = (4, 8, 9, 12, 16, 32, 64, 128)
+THRESHOLD_PRODUCTS = [("gemma-2b:w_gate", 2048, 16384),
+                      ("chatglm3-6b:w_down", 13696, 4096)]
+
+
+def _matmul_threshold_rows(timer) -> list:
+    """Both tensor-core routes of tiered_matmul (the C entry point, each
+    with the wrapper's plan for it) at each M of THRESHOLD_MS on
+    THRESHOLD_PRODUCTS, bf16: each against the plain version, timed, with
+    the host us a call of the same launch (what encoding x's tensor map at
+    every call costs the "wgmma" route), and the route the wrapper takes
+    there.  Its inputs come from a generator of its own (the checks after
+    it draw what they drew before it existed)."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    rows = []
+    for label, K, N in THRESHOLD_PRODUCTS:
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             * 0.1).bfloat16()
+        for M in THRESHOLD_MS:
+            x = (torch.randn((M, K), generator=gen, device="cuda")
+                 * 0.1).bfloat16()
+            plain = mm.tiered_matmul_plain(x, w)
+            row = dict(phase="check", kernel="tiered_matmul",
+                       dtype="bfloat16",
+                       shape=dict(M=M, K=K, N=N,
+                                  product="threshold:" + label),
+                       wrapper_route=mm.route(x, w), by_route={})
+            errs = []
+            for r in ("mma", "wgmma"):
+                y = torch.empty((M, N), dtype=x.dtype, device="cuda")
+                _launch_route(x, w, r, y)
+                err, ok = _compare(y, plain, torch.bfloat16)
+                errs.append(err)
+                row["by_route"][r] = dict(
+                    max_abs_err=err, ok=ok,
+                    ms=timer(lambda: _launch_route(x, w, r, y)),
+                    host_us=_host_us(lambda: _launch_route(x, w, r, y),
+                                     200))
+            row["max_abs_err"] = max(errs)
+            row["ok"] = all(v["ok"] for v in row["by_route"].values())
+            rows.append(row)
+            del x, plain, y
+        del w
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _decode_experts(B: int, k: int, E: int, gen) -> torch.Tensor:
@@ -1065,7 +1185,7 @@ def _experts_case(timer, dtype, R, E, K, N, gen, expert, name=None,
     same = torch.equal(out, again)
     per = torch.bincount(expert.long(), minlength=E)
     routed = int((per > 0).sum().item())
-    route = mm.route(x, w[0])
+    route = mm.route(x, w[0], experts=True)
     n_split, k_chunk = mm.plan(
         mm._expert_rows(R, E, route), N, K, route,
         torch.cuda.get_device_properties(0).multi_processor_count)
@@ -1967,11 +2087,20 @@ def phase_check(timer) -> list:
     # 350m's 5, bf16, as the dry run's cells run them
     rows += _e4m3_cases(timer, gen)
     rows += _long_decode_cases(timer, gen)
-    rows += [_matmul_case(timer, torch.bfloat16, 128, K, N, gen, label)
+    rows += [_matmul_case(timer, torch.bfloat16, 128, K, N, gen, label,
+                          want_route="wgmma")
+             for label, K, N in _m128_products()]
+    # ... and each again, untimed, behind a NaN fill of shared memory (a
+    # generator of its own: the checks after them keep their draws)
+    own = torch.Generator(device="cuda").manual_seed(34)
+    rows += [_matmul_case(None, torch.bfloat16, 128, K, N, own, label,
+                          stale_nan=True, want_route="wgmma")
              for label, K, N in _m128_products()]
     # the long_500k cells' decode products at M = 1 (batch 1), bf16
-    rows += [_matmul_case(timer, torch.bfloat16, 1, K, N, gen, label)
+    rows += [_matmul_case(timer, torch.bfloat16, 1, K, N, gen, label,
+                          want_route="mma")
              for label, K, N in _m1_products()]
+    rows += _matmul_threshold_rows(timer)
     for r in rows:
         if r["kernel"] == "decode_attention" and "ms" in r:
             r["launch_floor_ms"] = floor_ms
@@ -2463,7 +2592,8 @@ def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
     session to session).  So each session opens with ``PROFILE_GUARD_S``
     of host time, PROFILE_PAD throwaway launches and a marker kernel, and
     closes with the same guard and a second marker; only the kernels
-    between the two markers count."""
+    between the two markers count.  ``calls_per_step_by_kernel``: the
+    calls a step of each group substring's kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2504,14 +2634,18 @@ def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy / 1e3 / steps
-    by_group, calls_by_group = {}, {}
+    by_group, calls_by_group, calls_by_key = {}, {}, {}
     for name, (t, c) in by_name.items():
         g = next((g for g, keys in (groups or {}).items()
                   if any(k in name for k in keys)), "other")
         by_group[g] = by_group.get(g, 0.0) + t / 1e3 / steps
         calls_by_group[g] = calls_by_group.get(g, 0) + c / steps
+        for k in (groups or {}).get(g, ()):
+            if k in name:
+                calls_by_key[k] = calls_by_key.get(k, 0) + c / steps
     return dict(
         ms_per_step_by_group=by_group, calls_per_step_by_group=calls_by_group,
+        calls_per_step_by_kernel=calls_by_key,
         steps=steps, device_events=len(dev),
         trace_dropped_at_start=PROFILE_PAD + 1 - seen,
         device_events_per_step=len(dev) / steps,
@@ -2524,11 +2658,14 @@ def _device_profile(run, steps: int, wall_ms: float, groups=None) -> dict:
 
 
 # the port's serving kernels, by their names in the profile; the serving
-# products run only the tensor-core kernel, one launch a call: the FFMA
-# route and the old split-K sum kernel must not appear
+# products run only the tensor-core kernels, one launch a call (the
+# mma.sync kernel at a serving batch, the warpgroup kernel at the dry run's
+# decode batch of 128): the FFMA route and the old split-K sum kernel must
+# not appear
+WGMMA_KERNEL = "::tiered_wgmma_kernel<"
 SERVE_GROUPS = {
     "decode_attention": ["::decode_kernel<"],
-    "tiered_matmul": ["::tiered_mma_kernel("],
+    "tiered_matmul": ["::tiered_mma_kernel(", WGMMA_KERNEL],
     "tiered_matmul_ffma": ["::tiered_ffma_kernel<"],
     "tiered_matmul_experts": ["::tiered_experts_mma_kernel("],
     "tiered_matmul_experts_ffma": ["::tiered_experts_ffma_kernel<"],
@@ -2692,9 +2829,10 @@ def phase_serve(arch: str, name: str, layers: int = None) -> dict:
             == expect["tiered_matmul_experts"] / steps
             and not calls.get("tiered_matmul_ffma")
             and not calls.get("tiered_matmul_experts_ffma")
-            and not calls.get("splitk_sum"),
-            "every product of a decode step is one tensor-core launch "
-            f"({calls})")
+            and not calls.get("splitk_sum")
+            and not prof["calls_per_step_by_kernel"].get(WGMMA_KERNEL),
+            "every product of a decode step is one tensor-core launch, of "
+            f"the mma.sync kernel at batch {B} ({calls})")
     require(res["repeat_identical"], "a repeated request gives the same tokens")
     require(res["logits_finite"] and res["logits_shape"] == [B, cfg.vocab_size],
             "finite logits of shape (batch, vocab)")
@@ -2908,6 +3046,15 @@ def phase_dryrun() -> list:
         require(rec["launches_per_step"] == expect,
                 f"{rec['cell']}: launches a step {rec['launches_per_step']} "
                 f"== {expect}")
+        # the step's products on the warpgroup kernel at a batch of
+        # mm.WGMMA_MIN_M or more, on the mma.sync kernel below it
+        calls = rec["profile"]["calls_per_step_by_kernel"]
+        wg = calls.get(WGMMA_KERNEL, 0)
+        require(wg == (expect["tiered_matmul"]
+                       if rec["batch"] >= mm.WGMMA_MIN_M else 0)
+                and rec["profile"]["calls_per_step_by_group"].get(
+                    "tiered_matmul") == expect["tiered_matmul"],
+                f"{rec['cell']}: the products' kernels a step ({calls})")
         paths.append(dict(phase="dryrun:" + rec["cell"],
                           launches=rec["launches"]))
     ran = {p["phase"][len("dryrun:"):] for p in paths}
@@ -3643,8 +3790,11 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
     shape, with ``parent_ms`` null: the parent's kernels took N <= 64).
     ``parent_ms``: the SSD forward and backward of the checkout given with
     ``--parent`` ({"ssd_scan": ms, "ssd_scan_bwd": ms}), timed in this
-    run, and its e4m3 route at E4M3_PARENT_SHAPES before and after this
-    checkout's checks ({"decode_attention_e4m3": {label: [ms, ms]}})."""
+    run, its e4m3 route at E4M3_PARENT_SHAPES before and after this
+    checkout's checks ({"decode_attention_e4m3": {label: [ms, ms]}}), and
+    its tiered_matmul at the M = 128 products likewise
+    ({"tiered_matmul@M128": [{label: ms}, {label: ms}]}), summed into the
+    "arch@M128" entries of tiered_matmul's shapes."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
                 and cond(r["dtype"], r["shape"])]
@@ -3741,10 +3891,30 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
                          else _arch_shapes(checks, name))
         if name == "decode_attention":
             row["shapes"] += _long_shapes(checks)
+        if name == "tiered_matmul":
+            _m128_parents(row["shapes"], checks,
+                          (parent_ms or {}).get("tiered_matmul@M128"))
         row["shapes"] += _prefill_shapes(checks, name)
         out.append(row)
     out.append(_knapsack_line(checks, paths))
     return {"kernels": out}
+
+
+def _m128_parents(shapes, checks, runs) -> None:
+    """The route each "arch@M128" entry of tiered_matmul's shapes took and,
+    with ``--parent``, the parent's ms of the same products summed, before
+    and after this checkout's checks (``runs``: [{label: ms}, ...])."""
+    for entry in shapes:
+        if not entry["arch"].endswith("@M128"):
+            continue
+        prefix = "m128:" + entry["arch"].split("@")[0] + ":"
+        entry["routes"] = sorted({r["route"] for r in checks
+                                  if r["kernel"] == "tiered_matmul"
+                                  and str(r["shape"]["product"])
+                                  .startswith(prefix)})
+        entry["parent_ms"] = [sum(ms for label, ms in run.items()
+                                  if label.startswith(prefix))
+                              for run in runs] if runs else None
 
 
 def _long_shapes(checks) -> list:
@@ -3843,7 +4013,7 @@ def _arch_shapes(checks, name) -> list:
             if r["kernel"] != name or (front and not name.startswith("flash")):
                 return False
             if at_m:
-                return name == "tiered_matmul" and str(
+                return name == "tiered_matmul" and "ms" in r and str(
                     s["product"]).startswith(f"{at_m}:{arch}:")
             if one:
                 return (name == "tiered_matmul" and r["dtype"] == "bfloat16"
@@ -3893,8 +4063,8 @@ def _arch_shapes(checks, name) -> list:
 
 
 # Run in a checkout's root: its own chip_smoke.Timer and tiered_matmul
-# wrapper on the serving products at M = 4 in bf16 (argv[1]: JSON list of
-# [name, K, N]); prints one JSON list.
+# wrapper on bf16 products (argv[1]: JSON list of [name, M, K, N]); prints
+# one JSON list.
 _COMPARE_SNIPPET = r"""
 import json, sys, time, torch
 sys.path.insert(0, ".")
@@ -3903,8 +4073,8 @@ from repro_torch.kernels import ops
 timer = cs.Timer()
 gen = torch.Generator(device="cuda").manual_seed(42)
 rows = []
-for name, K, N in json.loads(sys.argv[1]):
-    x = (torch.randn((4, K), generator=gen, device="cuda") * 0.1).bfloat16()
+for name, M, K, N in json.loads(sys.argv[1]):
+    x = (torch.randn((M, K), generator=gen, device="cuda") * 0.1).bfloat16()
     w = (torch.randn((K, N), generator=gen, device="cuda") * 0.1).bfloat16()
     ms = timer(lambda: ops.tiered_matmul(x, w))
     library_ms = timer(lambda: torch.matmul(x, w))
@@ -3915,42 +4085,50 @@ for name, K, N in json.loads(sys.argv[1]):
         ops.tiered_matmul(x, w)
     host_us = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    rows.append(dict(product=name, K=K, N=N, ms=ms, library_ms=library_ms,
-                     host_us=host_us))
+    rows.append(dict(product=name, M=M, K=K, N=N, ms=ms,
+                     library_ms=library_ms, host_us=host_us))
 print(json.dumps(rows), flush=True)
 """
 
 
+def _matmul_compare_run(tree: str, prods: list) -> list:
+    """_COMPARE_SNIPPET's rows for ``prods`` ([name, M, K, N]) from the
+    checkout at ``tree``, in its own process."""
+    out = subprocess.run([sys.executable, "-c", _COMPARE_SNIPPET,
+                          json.dumps(prods)], cwd=tree, capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"tiered_matmul at {tree}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def compare_matmul(other: str) -> int:
     """``python3 chip_smoke.py --compare-matmul DIR``: the bf16 serving
-    products at M = 4 through this checkout's ``tiered_matmul`` and
-    through that of the checkout at DIR (the parent commit, unpacked with
-    ``git archive``), each run in its own process from its checkout's
-    root, in turns DIR, this, this, DIR: kernel ms (that checkout's
-    ``Timer``), ``torch.matmul`` ms beside it, and the wrapper's host us a
-    call (host clock over 1,000 calls, no synchronisation in between).
-    Prints one JSON line a run, then the mean of each checkout's two runs
-    by product."""
+    products at M = 4 and the dry run's decode products at M = 128
+    through this checkout's ``tiered_matmul`` and through that of the
+    checkout at DIR (the parent commit, or a variant, unpacked into a
+    directory git ignores), each run in its own process from its
+    checkout's root, in turns DIR, this, this, DIR: kernel ms (that
+    checkout's ``Timer``), ``torch.matmul`` ms beside it, and the wrapper's
+    host us a call (host clock over 1,000 calls, no synchronisation in
+    between).  Prints one JSON line a run, then the mean of each
+    checkout's two runs by product."""
     phase_device()
     gemma, zamba = _path_products()
-    prods = json.dumps([[n, K, N] for n, K, N in gemma]
-                       + [["zamba2:" + n, K, N] for n, K, N in zamba])
+    prods = ([[n, 4, K, N] for n, K, N in gemma]
+             + [["zamba2:" + n, 4, K, N] for n, K, N in zamba]
+             + [[n, 128, K, N] for n, K, N in _m128_products()])
     runs = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
         tree = os.path.abspath(other) if who == "other" else ROOT
-        out = subprocess.run([sys.executable, "-c", _COMPARE_SNIPPET, prods],
-                             cwd=tree, capture_output=True, text=True,
-                             timeout=900)
-        if out.returncode != 0:
-            print(out.stderr[-2000:], file=sys.stderr)
-            return 1
-        rows = json.loads(out.stdout.strip().splitlines()[-1])
+        rows = _matmul_compare_run(tree, prods)
         runs[who].append(rows)
         emit(dict(phase="compare_matmul", checkout=who, tree=tree,
                   products=rows))
     summary = []
     for i, row in enumerate(runs["this"][0]):
-        item = dict(product=row["product"], K=row["K"], N=row["N"])
+        item = dict(product=row["product"], M=row["M"], K=row["K"],
+                    N=row["N"])
         for who, key in (("other", "other"), ("this", "this")):
             for f in ("ms", "library_ms", "host_us"):
                 item[f"{key}_{f}"] = statistics.mean(
@@ -4154,6 +4332,17 @@ def e4m3_ms(tree: str) -> dict:
     return ms
 
 
+def parent_m128_ms(other: str) -> dict:
+    """``--parent DIR``: the dry run's decode products at M = 128 through
+    the ``tiered_matmul`` of the checkout at DIR, timed by that checkout's
+    ``Timer`` in its own process on this card: {label: ms}."""
+    rows = _matmul_compare_run(os.path.abspath(other), [
+        [n, 128, K, N] for n, K, N in _m128_products()])
+    ms = {r["product"]: r["ms"] for r in rows}
+    emit(dict(phase="parent_m128", tree=other, ms=ms))
+    return ms
+
+
 def parent_ssd_ms(other: str) -> dict:
     """``--parent DIR``: the SSD forward and backward of the checkout at DIR
     (the parent commit, unpacked with ``git archive``) at the zamba2
@@ -4224,6 +4413,8 @@ def main() -> int:
     timer = Timer()
     # the parent's e4m3 route timed before and after this checkout's
     e4m3_parent = [timed("parent", e4m3_ms, parent)] if parent else []
+    # ... and its tiered_matmul at M = 128
+    m128_parent = [timed("parent", parent_m128_ms, parent)] if parent else []
     checks = timed("check", phase_check, timer)
     timed("check", phase_e4m3_cast)
     parent_ms = timed("parent", parent_ssd_ms, parent) if parent else None
@@ -4232,6 +4423,8 @@ def main() -> int:
         parent_ms["decode_attention_e4m3"] = {
             label: [run[label] for run in e4m3_parent]
             for label in e4m3_parent[0]}
+        m128_parent.append(timed("parent", parent_m128_ms, parent))
+        parent_ms["tiered_matmul@M128"] = m128_parent
     timed("runtime", phase_runtime, timer)
     for arch, heads, head_dim in (
             ("gemma-2b", None, None), ("zamba2-1.2b", None, None),

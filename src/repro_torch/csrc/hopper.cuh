@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives for the bf16 flash-attention kernels
 // (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu), the bf16
-// weight stream of csrc/tiered_matmul.cu and the SSD-scan tiles
+// weight streams and warpgroup products of csrc/tiered_matmul.cu and the
+// SSD-scan tiles
 // (csrc/ssd_mma.cuh), as inline PTX:
 // mbarriers, TMA tensor loads and tensor maps, warpgroup MMA (wgmma) and
 // its shared-memory descriptors, register reallocation, and cp.async.
@@ -109,6 +110,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
 __device__ __forceinline__ uint64_t policy_evict_first() {
   uint64_t policy;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// An L2 policy that evicts these lines last: a tile that other blocks of
+// the grid read again stays in the cache.
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
                : "=l"(policy));
   return policy;
 }

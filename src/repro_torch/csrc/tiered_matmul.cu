@@ -1,4 +1,5 @@
-// y = x @ w with an fp32 accumulator, for sm_90a, shaped for small M.
+// y = x @ w with an fp32 accumulator, for sm_90a: three kernels, by M and
+// dtype.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/tiered_matmul.py
 // (`tiered_matmul`, body `_mm_kernel`): both inputs are cast to fp32, the
@@ -8,15 +9,17 @@
 // What bounds it on this card: bytes.  The serving paths call it at M = 4
 // (batch 4) in bf16: each weight element is used for 4 multiply-adds, about
 // 4 flops per weight byte against the ~295 an H100 needs before the tensor
-// cores matter.  So the kernel is a weight stream and its floor is
-// K * N * 2 bytes over HBM bandwidth (20 us for gemma-2b's 2048 x 16384
-// w_gate); what costs time is bytes not in flight, a second launch, a grid
-// that leaves SMs idle in a last partial wave, and any step of a block
-// that waits on a round trip to memory.
+// cores matter.  The dry run's decode cells call it at M = 128: 128 flops a
+// weight byte, still under that line.  So each kernel is a weight stream
+// and its floor is K * N * 2 bytes over HBM bandwidth (20 us for gemma-2b's
+// 2048 x 16384 w_gate); what costs time is bytes not in flight, a weight
+// tile read more than once, a second launch, a grid that leaves SMs idle in
+// a last partial wave, and any step of a block that waits on a round trip
+// to memory.  The route and the grid are chosen by kernels/tiered_matmul.py
+// (`route`, `plan`), by shape alone.
 //
-// What the design does about it (bf16 with rows of w TMA can describe,
-// `tiered_mma_kernel`; the route and the grid are chosen by
-// kernels/tiered_matmul.py):
+// bf16 with M <= 8 (every serving batch) and rows of w TMA can describe,
+// `tiered_mma_kernel`:
 // * Weight tiles of 64 rows of K by 128 columns (16 KB, two 64-column TMA
 //   boxes) stream by TMA (a 2-D tensor map, 128-byte swizzle, zeros past K
 //   and N) into a ring of kStages = 4 under full/empty mbarriers, from one
@@ -43,7 +46,9 @@
 //   its bytes.  bf16 x bf16 products are exact in fp32, so this is the
 //   reference's function summed in another order.  One warp instruction
 //   takes 256 weight elements.  M > 8 takes more blocks along y, each
-//   re-reading w (only the reference tests' shapes do that).
+//   re-reading w: the wrapper sends such M to the warpgroup kernel below
+//   whenever x's rows are TMA rows too (K a multiple of 8, x 16-byte
+//   aligned), so only an x that TMA cannot describe reads w more than once.
 // * One launch a call.  K is split across n_split <= 8 blocks that form
 //   one thread-block cluster; each leaves its fp32 partial (8 x 128) in its
 //   shared memory, and after a cluster barrier every block sums a share of
@@ -56,6 +61,45 @@
 //   the grid stays one wave, so no partial wave runs on a mostly idle card.
 // * A wait on an mbarrier that has not completed after ~4 s traps (the
 //   launch fails) instead of spinning forever.
+//
+// bf16 with M >= 9 whose rows of x and of w TMA can describe,
+// `tiered_wgmma_kernel` (the dry run's decode batch of 128):
+// * A block takes 128 rows of x by 128 columns of w, so at M = 128 each
+//   weight tile is read once a call (the "mma" kernel read it 16 times).
+//   One producer thread (warp 8) streams stages of 64 rows of K by TMA into
+//   a ring under full/empty mbarriers: x's 128 x 64 box (2-D map over (K,
+//   M), 128-byte swizzle, zeros past M and K, evict-last: every column
+//   tile reads it) and w's two 64-column boxes (the cached map above,
+//   evict-first; boxes wholly past N are not loaded).  Two consumer
+//   warpgroups (warps 0-7) each own 64 rows of x and all 128 columns: 4 x
+//   wgmma.m64n128k16 a stage, A = x K-major from shared memory, B = w's
+//   stage MN-major (its leading offset steps one box, as V in
+//   flash_attention.cu), 64 fp32 accumulators a thread.  A stage is
+//   released only after wgmma_wait has retired the group that read it (one
+//   group in flight behind the newest).
+// * x is a fresh activation at every call, so its tensor map is encoded on
+//   the host at every call.  chip_smoke.py's threshold rows time both
+//   tensor-core launches' host time a call at each M: on an H100 this
+//   route's, map included, lay within the spread of the "mma" kernel's,
+//   which encodes nothing for x -- what staging x by cp.async would cost
+//   the host -- 17-30 us a call either way.  So the map stays: it keeps
+//   x's loads off the consumers.
+// * K splits as above (n_split <= 8 blocks of a cluster), planned by the
+//   wrapper with this kernel's own shared memory; a split's 128 x 128 fp32
+//   partial (64 KB) goes into the ring once the stream ends, and the
+//   cluster sums the partials in rank order through DSMEM, four columns a
+//   load and 8 loads in flight a thread: the same bits on every run, no
+//   atomics, no workspace.  One split (the wide products) skips the
+//   merge: each thread stores its sums straight to y.  With K splits the
+//   ring has 3 stages (99 KB: two blocks an SM, so a cluster of 8 finds
+//   room); with one split whose tiles fit one block an SM, 4.  On the H100
+//   (throwaway variant sweeps, not kept) 4 stages everywhere were slower on
+//   the split products and 3 everywhere on the unsplit ones; pushing the
+//   partials to each row's owner block by posted DSMEM stores was slower than
+//   reading them, and a merge that read one value at a time was the largest
+//   cost of all.
+// * Rows past M and columns past N are never stored; byte offsets into y
+//   are 64-bit; K past the last stage is zeros in both boxes.
 //
 // fp32, and bf16 whose rows of w are not 16-byte multiples or whose base
 // is not 16-byte aligned (TMA cannot describe them; no serving shape), take
@@ -451,6 +495,206 @@ tiered_experts_mma_kernel(const __grid_constant__ CUtensorMap tm_w,
   tc_block<true>(&tm_w, a);
 }
 
+// --------------------------------------- warpgroup MMA (bf16, large M)
+constexpr int kWgRows = 128;            // rows of x a block: 2 warpgroups
+constexpr int kWgThreads = 2 * 128 + 32;    // + the producer warp
+constexpr int kXBoxBytes = kWgRows * 128;   // 64 k's of 128 rows of x
+constexpr int kWgStageBytes = kXBoxBytes + kStageBytes;
+constexpr int kWgLd = kBN + 8;          // the partial's row stride, floats
+// A block's shared memory with a ring of `stages`: alignment, the ring
+// (which holds the partial of a K split once the stream ends), the
+// mbarriers.  3 stages with K splits (two blocks an SM), 4 without.
+constexpr int wg_smem(int stages) {
+  return 1024 + stages * kWgStageBytes + 2 * stages * 8;
+}
+static_assert(kWgRows * kWgLd * 4 <= 3 * kWgStageBytes,
+              "the partial fits in the ring");
+
+// The warpgroup kernel's K splits merged (n_split <= kSplit): each block
+// holds a 128 x 128 fp32 partial (row stride kWgLd) at `part` in its
+// shared memory; each output is the sum over the cluster's blocks in rank
+// order, read through distributed shared memory four columns at a time,
+// each block taking every n_split-th quad of the tile's first `rows` rows
+// and `cols` columns (cols a multiple of 8: N is).  A thread keeps 8 of
+// its loads in flight at once.  Called between the two cluster
+// barriers.
+template <int kSplit>
+__device__ __forceinline__ void merge_quads(const float* part, int rows,
+                                            int cols, __nv_bfloat16* y,
+                                            long long ldy, int row0,
+                                            int col0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = (int)cluster.num_blocks();
+  constexpr int kQuads = kBN / 4, kBatch = 8 / kSplit;
+  const int total = rows * kQuads, stride = n_split * (int)blockDim.x;
+  for (int q0 = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
+       q0 < total; q0 += kBatch * stride) {
+    float4 v[kBatch][kSplit];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int q = q0 + b * stride, r = q / kQuads, c = 4 * (q % kQuads);
+      const bool live = q < total && c < cols;
+#pragma unroll
+      for (int p = 0; p < kSplit; ++p)
+        v[b][p] = live && p < n_split
+                      ? *reinterpret_cast<const float4*>(
+                            cluster.map_shared_rank(part + r * kWgLd + c, p))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int q = q0 + b * stride, r = q / kQuads, c = 4 * (q % kQuads);
+      if (q >= total || c >= cols) continue;
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int p = 0; p < kSplit; ++p) {
+        t.x += v[b][p].x; t.y += v[b][p].y; t.z += v[b][p].z;
+        t.w += v[b][p].w;
+      }
+      *reinterpret_cast<uint2*>(y + (long long)(row0 + r) * ldy + col0 + c) =
+          make_uint2(hopper::pack_bf16(t.x, t.y),
+                     hopper::pack_bf16(t.z, t.w));
+    }
+  }
+}
+
+// A block of the warpgroup kernel: rows row0 .. row0 + 127 of x times
+// columns col0 .. col0 + 127 of w over its K split.  Grid (tiles of kBN
+// columns x n_split, ceil(M / 128)); clusters of the n_split K-split
+// blocks of one tile, along x.  Warps 0-7 are two consumer warpgroups,
+// warp 8 the producer.
+template <int kWgStages>
+__global__ void __launch_bounds__(kWgThreads, kWgStages == 3 ? 2 : 1)
+tiered_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_w, TcArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+
+  const int n_split = (int)cg::this_cluster().num_blocks();
+  const int split = (int)cg::this_cluster().block_rank();
+  const int col0 = (int)blockIdx.x / n_split * kBN;
+  const int row0 = (int)blockIdx.y * kWgRows;
+  const int m_rows = min(kWgRows, a.M - row0);
+  const int tile0 = split * (a.k_chunk / kBK);    // the split's first stage
+  const int k_tiles = (a.K + kBK - 1) / kBK;
+  const int steps = min(a.k_chunk / kBK, k_tiles - tile0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    hopper::mbar_fence_init();
+  } else if (threadIdx.x == 256) {
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&tm_w)) : "memory");
+  }
+  __syncthreads();
+
+  // a consumer's outputs: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the
+  // tile, all 128 columns, 64 fp32 accumulators a thread: rows r and r + 8,
+  // columns 8 j + c and + 1 (acc[4 j + 2 h], acc[4 j + 2 h + 1] for row
+  // r + 8 h)
+  const int wg = warp >> 2;
+  const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int c = 2 * (lane & 3);
+  float acc[kBN / 2];
+  if (warp == 8) {
+    // ---- producer: a stage is x's 128 x 64 box (zeros past M and K; kept
+    // in L2, every column tile reads it) and w's boxes (read once, evict
+    // first; boxes wholly past N are not loaded: no column of them is
+    // stored)
+    if (lane == 0) {
+      const uint64_t keep = hopper::policy_evict_last();
+      const uint64_t once = hopper::policy_evict_first();
+      const int boxes = min(kBoxes, (a.N - col0 + 63) / 64);
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % kWgStages, k0 = (tile0 + s) * kBK;
+        uint8_t* stage = ring + slot * kWgStageBytes;
+        mbar_wait_bounded(&empty[slot], ((s / kWgStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[slot], kXBoxBytes + boxes * kBoxBytes);
+        hopper::tma_load_2d(stage, &tm_x, &full[slot], k0, row0, keep);
+        for (int b = 0; b < boxes; ++b)
+          hopper::tma_load_2d(stage + kXBoxBytes + b * kBoxBytes, &tm_w,
+                              &full[slot], col0 + 64 * b, k0, once);
+      }
+    }
+  } else {
+    // ---- consumers
+#pragma unroll
+    for (int v = 0; v < kBN / 2; ++v) acc[v] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const int slot = s % kWgStages;
+      mbar_wait_bounded(&full[slot], (s / kWgStages) & 1);
+      const uint32_t base = hopper::smem_addr(ring + slot * kWgStageBytes);
+      // A: x's rows, K-major (k16 step = 32 bytes of a 128-byte row); B:
+      // w's stage, MN-major, its leading offset stepping one 64-column box
+      const uint32_t xa = base + wg * (64 * 128);
+      const uint32_t wb = base + kXBoxBytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hopper::wgmma_sst_n128(
+            acc, hopper::gmma_desc(xa + kk * 32, 0, 1024),
+            hopper::gmma_desc(wb + kk * 16 * 128, kBoxBytes, 1024), 1);
+      hopper::wgmma_commit();
+      // the previous stage's products have retired: release its slot
+      hopper::wgmma_wait<1>();
+      if (s > 0 && lane == 0)
+        hopper::mbar_arrive(&empty[(s - 1) % kWgStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (n_split == 1) {
+      // one split: the sums go straight to y, rows past M and columns past
+      // N left out (N is a multiple of 8, so a pair lies inside or past it)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r + 8 * h >= m_rows) continue;
+        __nv_bfloat16* yr =
+            a.y + (long long)(row0 + r + 8 * h) * a.N + col0 + c;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+          if (col0 + 8 * j + c < a.N)
+            *reinterpret_cast<uint32_t*>(yr + 8 * j) = hopper::pack_bf16(
+                acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  if (n_split > 1) {                    // the same in every block of the
+    if (warp < 8) {                     // cluster
+      hopper::named_sync(1, 256);       // no product reads the ring now
+      // the partial, [m][n] of the tile (row stride kWgLd), into the ring
+      float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        *reinterpret_cast<float2*>(part + r * kWgLd + 8 * j + c) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(part + (r + 8) * kWgLd + 8 * j + c) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    __syncwarp();                       // the barriers below are .aligned
+    cluster_sync_acq_rel();
+    const float* part = reinterpret_cast<const float*>(ring);
+    const int cols = min(kBN, a.N - col0);
+    if (n_split == 2)
+      merge_quads<2>(part, m_rows, cols, a.y, a.N, row0, col0);
+    else if (n_split <= 4)
+      merge_quads<4>(part, m_rows, cols, a.y, a.N, row0, col0);
+    else
+      merge_quads<8>(part, m_rows, cols, a.y, a.N, row0, col0);
+    cluster_sync_relaxed();
+  }
+}
+
 // The tensor map of each weight, encoded at its first call: the map holds
 // only the address, shape and strides, so the key says everything it
 // encodes, and a weight freed and another placed at the same address with
@@ -530,6 +774,54 @@ int launch_tc(const TcArgs& a, const CUtensorMap& map, int n_split,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The warpgroup kernel: w's map from the cache, x's encoded at every call
+// (x is a fresh activation; see the header for what that costs); a ring of
+// 4 stages when one split's tiles fit one block an SM, else of 3 (two
+// blocks an SM: a cluster's blocks find room on fewer SMs, and a grid of
+// up to twice the SMs runs in one wave).
+template <int kStages>
+int launch_wgmma_ring(const CUtensorMap& map_x, const CUtensorMap& map_w,
+                      const TcArgs& a, int n_split, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tiered_wgmma_kernel<kStages>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(kStages));
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + kBN - 1) / kBN * n_split,
+                     (a.M + kWgRows - 1) / kWgRows, 1);
+  cfg.blockDim = dim3(kWgThreads, 1, 1);
+  cfg.dynamicSmemBytes = wg_smem(kStages);
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = n_split;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, tiered_wgmma_kernel<kStages>, map_x, map_w, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* w, const TcArgs& a, int n_split,
+                 cudaStream_t stream) {
+  CUtensorMap map_w, map_x;
+  int err = weight_map(w, a.N, a.K, 0, &map_w);
+  if (err == 0) err = hopper::matrix_map(&map_x, a.x, a.K, a.M, kWgRows);
+  if (err != 0) return err;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles =
+      (long long)(a.N + kBN - 1) / kBN * ((a.M + kWgRows - 1) / kWgRows);
+  return n_split == 1 && tiles <= sms
+             ? launch_wgmma_ring<4>(map_x, map_w, a, 1, stream)
+             : launch_wgmma_ring<3>(map_x, map_w, a, n_split, stream);
 }
 
 // ------------------------------------------------------------ FFMA route
@@ -710,13 +1002,14 @@ int launch_ffma(const FfmaArgs& a, int n_split, int grid_y,
 
 // y = x @ w.  x (M, K) and w (K, N) row-major and contiguous, y (M, N)
 // contiguous; dtype 0 = float32, 1 = bfloat16.  route 1 (bf16 only, N a
-// multiple of 8, w 16-byte aligned): the tensor-core kernel, K split in
-// k_chunk rows, a multiple of 64; route 0: the FFMA kernel, k_chunk any
-// multiple of 8.  1 <= n_split <= 8 blocks of k_chunk rows cover K, none
-// empty.  vec: route 1, x rows can be read 16 bytes at a time (K a
-// multiple of 8, x 16-byte aligned); route 0, w rows can be read 8
-// elements at a time (N a multiple of 8, w 16-byte aligned).  Returns a
-// CUDA error code (0 on success).
+// multiple of 8, w 16-byte aligned): the mma.sync kernel, K split in
+// k_chunk rows, a multiple of 64; route 2 (the same, and K a multiple of 8
+// and x 16-byte aligned): the warpgroup kernel, K split likewise; route 0:
+// the FFMA kernel, k_chunk any multiple of 8.  1 <= n_split <= 8 blocks of
+// k_chunk rows cover K, none empty.  vec: route 1, x rows can be read 16
+// bytes at a time (K a multiple of 8, x 16-byte aligned); route 0, w rows
+// can be read 8 elements at a time (N a multiple of 8, w 16-byte
+// aligned); unused by route 2.  Returns a CUDA error code (0 on success).
 extern "C" int tiered_matmul_launch(
     const void* x, const void* w, void* y, int M, int N, int K, int route,
     int n_split, int k_chunk, int vec, int dtype, void* stream) {
@@ -725,6 +1018,16 @@ extern "C" int tiered_matmul_launch(
       || (long long)n_split * k_chunk < K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    if (dtype != 1 || N % 8 != 0 || K % 8 != 0 || k_chunk % kBK != 0
+        || reinterpret_cast<uintptr_t>(w) % 16 != 0
+        || reinterpret_cast<uintptr_t>(x) % 16 != 0
+        || (M + kWgRows - 1) / kWgRows > 65535)
+      return (int)cudaErrorInvalidValue;
+    TcArgs a{static_cast<const __nv_bfloat16*>(x),
+             static_cast<__nv_bfloat16*>(y), M, N, K, k_chunk, 1, nullptr, 0};
+    return launch_wgmma(w, a, n_split, s);
+  }
   if (route == 0) {
     FfmaArgs a{x, w, y, M, N, K, k_chunk, vec, nullptr, 0};
     const int grid_y = (M + kRows - 1) / kRows;

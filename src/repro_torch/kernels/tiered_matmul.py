@@ -5,12 +5,19 @@ Port of the reference package's Pallas kernel (``kernels/tiered_matmul.py``).
 On a CUDA tensor the wrapper launches the kernel, once a call, or raises;
 only a CPU tensor takes :func:`tiered_matmul_plain`.
 
-Two routes, by :func:`route`:
+Three routes, by :func:`route`, chosen by shape alone:
 
-- ``"mma"``: bf16 whose weight rows TMA can describe (N a multiple of 8,
-  w 16-byte aligned) -- every serving shape.  Weight tiles stream through
-  a TMA/mbarrier ring into tensor-core products; K is split across the
-  blocks of one cluster, merged in the kernel.
+- ``"wgmma"``: bf16 with at least ``WGMMA_MIN_M`` rows of x, whose x and w
+  rows TMA can describe (K and N multiples of 8, x and w 16-byte aligned)
+  -- the dry run's decode batch of 128.  A block takes 128 rows of x by
+  128 columns: x's and w's tiles stream through a TMA/mbarrier ring into
+  warpgroup products (wgmma), so each weight tile is read once for every
+  128 rows of x.  K is split across the blocks of one cluster, merged in
+  the kernel.
+- ``"mma"``: bf16 with fewer rows, whose weight rows TMA can describe (N a
+  multiple of 8, w 16-byte aligned) -- every serving shape, at batch 4 and
+  1.  Weight tiles stream through a TMA/mbarrier ring into ``mma.sync``
+  products against x's rows staged once; the same in-cluster K merge.
 - ``"ffma"``: fp32 (2e-5 rules out TF32), and bf16 that TMA cannot
   describe.  FFMA, with the same in-cluster K merge.
 
@@ -39,7 +46,7 @@ launches = 0
 expert_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"ffma": 0, "mma": 1}
+_ROUTES = {"ffma": 0, "mma": 1, "wgmma": 2}
 _MAX_SPLIT = 8              # blocks of a cluster (the portable size)
 # the "mma" kernel: columns of a tile, rows of K a ring stage, stages, rows
 # of x a block, the row stride of its window of x, and the shared memory
@@ -52,18 +59,32 @@ _LONG_SPLIT = 16
 _FFMA_COLS, _FFMA_ROWS = 256, 4
 # experts the expert route's kernels count in shared memory
 _MAX_EXPERTS = 1024
+# the "wgmma" kernel: rows of x a block; its grid is doubled in K splits
+# while fewer than this share of the SMs have a block and each split keeps
+# at least this many stages
+_WG_ROWS, _WG_FILL, _WG_MIN_STAGES = 128, 0.75, 4
+#: least rows of x the "wgmma" route takes (below: "mma", whose one block
+#: of 8 rows reads each weight tile once up to M = 8)
+WGMMA_MIN_M = 9
 
 #: plain version: both inputs cast to fp32, result in x's dtype
 tiered_matmul_plain = ref.tiered_matmul_ref
 
 
-def route(x: torch.Tensor, w: torch.Tensor) -> str:
+def route(x: torch.Tensor, w: torch.Tensor, *,
+          experts: bool = False) -> str:
     """``"mma"`` for bf16 when N is a multiple of 8 and w is 16-byte
-    aligned (a TMA tensor map describes its rows), else ``"ffma"``."""
-    if (x.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+    aligned (a TMA tensor map describes its rows), ``"wgmma"`` instead when
+    x also has at least ``WGMMA_MIN_M`` rows, K is a multiple of 8 and x is
+    16-byte aligned (a map describes x's rows too), else ``"ffma"``.
+    ``experts``: the expert route's choice, which has no ``"wgmma"``."""
+    if not (x.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
             and w.data_ptr() % 16 == 0):
-        return "mma"
-    return "ffma"
+        return "ffma"
+    if (not experts and x.shape[0] >= WGMMA_MIN_M and x.shape[1] % 8 == 0
+            and x.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "mma"
 
 
 def mma_smem_bytes() -> int:
@@ -74,9 +95,21 @@ def mma_smem_bytes() -> int:
             + _M_ROWS * _BN * 4 + 2 * _STAGES * 8)
 
 
-def blocks_per_sm() -> int:
-    """Blocks of the "mma" kernel one SM holds, by shared memory."""
-    return _SMEM_PER_SM // (mma_smem_bytes() + _SMEM_RESERVED)
+def wgmma_smem_bytes(stages: int = 3) -> int:
+    """Dynamic shared memory of a block of the "wgmma" kernel with a ring
+    of ``stages`` (4 where one split's tiles fit one block an SM, else 3):
+    1024 of alignment, the ring of x's 128 x 64 and w's 64 x 128 tiles (the
+    128 x 128 fp32 partial of a K split lies there once the stream ends)
+    and the ring's mbarriers (``wg_smem`` in the source)."""
+    return (1024 + stages * (_WG_ROWS * _BK * 2 + _BK * _BN * 2)
+            + 2 * stages * 8)
+
+
+def blocks_per_sm(route_: str = "mma") -> int:
+    """Blocks of the "mma" kernel, or of the "wgmma" kernel's 3-stage ring
+    (the one a grid of K splits runs), one SM holds, by shared memory."""
+    smem = mma_smem_bytes() if route_ == "mma" else wgmma_smem_bytes(3)
+    return _SMEM_PER_SM // (smem + _SMEM_RESERVED)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -85,23 +118,36 @@ def plan(M: int, N: int, K: int, route_: str, sms: int):
     blocks of k_chunk rows cover K, none empty, n_split <= 8 (the blocks of
     one cluster).
 
-    ``"mma"`` (128-column tiles, whole 64-row stages): the smallest split
-    (1, 2, 4, 8) whose grid gives 95 % of the SMs a block, doubled while
-    each block keeps at least 16 stages and the grid stays one wave of the
-    blocks the SMs hold.  Measured on an H100 at the serving shapes, more
-    blocks than that stream no faster (their stages are fewer and each
-    block pays its ring's fill and the merge), and long splits gain from a
-    second block on the SM.  ``"ffma"``: splits of K that bring the 256 x 4
-    tiles to about two blocks an SM, at least 64 rows each."""
-    if route_ == "mma":
+    ``"mma"`` (tiles of 128 columns by 8 rows of x, whole 64-row stages):
+    the smallest split (1, 2, 4, 8) whose grid gives 95 % of the SMs a
+    block, doubled while each block keeps at least 16 stages and the grid
+    stays one wave of the blocks the SMs hold.  Measured on an H100 at the
+    serving shapes, more blocks than that stream no faster (their stages
+    are fewer and each block pays its ring's fill and the merge), and long
+    splits gain from a second block on the SM.  ``"wgmma"`` (tiles of 128
+    columns by 128 rows): the smallest split whose grid gives 75 % of the
+    SMs a block while each split keeps at least 4 stages, within one wave
+    of its split blocks (two an SM), and no more: its partials are 16 times
+    the "mma" kernel's, so a split costs more than it gains once the grid
+    is full (measured on an H100 at the dry run's M = 128 products).
+    ``"ffma"``: splits of K that bring the 256 x 4 tiles to about two blocks
+    an SM, at least 64 rows each."""
+    if route_ in ("mma", "wgmma"):
         k_tiles = -(-K // _BK)
-        tiles = -(-N // _BN) * -(-M // _M_ROWS)
+        rows = _M_ROWS if route_ == "mma" else _WG_ROWS
+        tiles = -(-N // _BN) * -(-M // rows)
+        wave = sms * blocks_per_sm(route_)
+        fill, least = (0.95, 0) if route_ == "mma" else (_WG_FILL,
+                                                         _WG_MIN_STAGES)
         n_split = 1
-        while n_split < min(_MAX_SPLIT, k_tiles) and tiles * n_split < 0.95 * sms:
+        while (n_split < min(_MAX_SPLIT, k_tiles)
+               and tiles * n_split < fill * sms
+               and tiles * 2 * n_split <= wave
+               and k_tiles >= 2 * n_split * least):
             n_split *= 2
-        while (2 * n_split <= min(_MAX_SPLIT, k_tiles)
+        while (route_ == "mma" and 2 * n_split <= min(_MAX_SPLIT, k_tiles)
                and k_tiles >= 2 * n_split * _LONG_SPLIT
-               and tiles * 2 * n_split <= sms * blocks_per_sm()):
+               and tiles * 2 * n_split <= wave):
             n_split *= 2
         per = -(-k_tiles // min(n_split, k_tiles))
         return -(-k_tiles // per), per * _BK
@@ -140,10 +186,10 @@ def tiered_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     N = w.shape[1]
     r = route(x, w)
     n_split, k_chunk = plan(M, N, K, r, _sm_count(x.device.index))
-    if r == "mma":      # x rows read 16 bytes at a time
-        vec = K % 8 == 0 and x.data_ptr() % 16 == 0
-    else:               # w rows read 8 elements at a time
+    if r == "ffma":     # w rows read 8 elements at a time
         vec = N % 8 == 0 and w.data_ptr() % 16 == 0
+    else:               # "mma": x rows read 16 bytes at a time
+        vec = K % 8 == 0 and x.data_ptr() % 16 == 0
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     err = _bind()(x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K,
                   _ROUTES[r], n_split, k_chunk, int(vec),
@@ -226,7 +272,8 @@ def tiered_matmul_experts(x: torch.Tensor, w: torch.Tensor,
                          f"{_MAX_EXPERTS}")
     x, expert = x.contiguous(), expert.contiguous()
     R = x.shape[0]
-    r = route(x, w[0])      # every expert's weight aligned as the first
+    # every expert's weight aligned as the first
+    r = route(x, w[0], experts=True)
     n_split, k_chunk = plan(_expert_rows(R, E, r), N, K, r,
                             _sm_count(x.device.index))
     if r == "mma":

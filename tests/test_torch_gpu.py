@@ -200,6 +200,66 @@ def test_tiered_matmul_kernel_ignores_stale_shared_memory(cuda, M, K, N):
                                atol=TOL[torch.bfloat16])
 
 
+# one gemma-2b and one chatglm3-6b layer's 7 decode products, (K, N): wq,
+# wk, wv, wo, w_gate, w_up, w_down
+GEMMA_PRODUCTS = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
+                  (2048, 16384), (2048, 16384), (16384, 2048)]
+GLM_PRODUCTS = [(4096, 4096), (4096, 256), (4096, 256), (4096, 4096),
+                (4096, 13696), (4096, 13696), (13696, 4096)]
+WGMMA_PRODUCTS = sorted(set(GEMMA_PRODUCTS + GLM_PRODUCTS))
+
+
+@pytest.mark.parametrize("K,N", WGMMA_PRODUCTS)
+@pytest.mark.parametrize("M", [64, 128, 129, 200])
+def test_tiered_matmul_wgmma_route_matches_plain(cuda, M, K, N):
+    """The warpgroup route at a decode batch of 128 and round it (its
+    threshold, one row into a second 128-row tile, a ragged last tile) on
+    gemma-2b's and chatglm3-6b's products: one launch a call, within
+    TOL[bf16] of the plain version."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x = _randn((M, K), torch.bfloat16, 14, 0.1)
+    w = _randn((K, N), torch.bfloat16, 15, 0.1)
+    assert mm.route(x, w) == ("wgmma" if M >= mm.WGMMA_MIN_M else "mma")
+    before = mm.launches
+    out = mm.tiered_matmul(x, w)
+    torch.cuda.synchronize()
+    assert mm.launches == before + 1
+    torch.testing.assert_close(out.float(), mm.tiered_matmul_plain(x, w)
+                               .float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 16384, 2048), (128, 4096, 13696),
+                                   (200, 2000, 264)])
+def test_tiered_matmul_wgmma_route_gives_the_same_bits_every_run(cuda, M, K,
+                                                                 N):
+    """The warpgroup route's K split is merged in a fixed order too."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    x = _randn((M, K), torch.bfloat16, 16, 0.1)
+    w = _randn((K, N), torch.bfloat16, 17, 0.1)
+    assert mm.route(x, w) == "wgmma"
+    first = mm.tiered_matmul(x, w)
+    assert all(torch.equal(first, mm.tiered_matmul(x, w)) for _ in range(3))
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 2048, 8384), (129, 2000, 264),
+                                   (65, 40, 136)])
+def test_tiered_matmul_wgmma_route_ignores_stale_shared_memory(cuda, M, K,
+                                                               N):
+    """Behind a NaN fill of every SM's shared memory: a ring slot read
+    before its copy lands, or a partial row no product wrote, shows."""
+    mm = importlib.import_module("repro_torch.kernels.tiered_matmul")
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    x = _randn((M, K), torch.bfloat16, 18, 0.1)
+    w = _randn((K, N), torch.bfloat16, 19, 0.1)
+    assert mm.route(x, w) == "wgmma"
+    da.fill_shared_memory_nan(x.device)
+    out = mm.tiered_matmul(x, w)
+    torch.testing.assert_close(out.float(), mm.tiered_matmul_plain(x, w)
+                               .float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
 # the expert route: (R, E, K, N, experts): moonshot-v1-16b-a3b's and
 # dbrx-132b's decode at batch 4 (each token's k distinct experts, drawn);
 # every row on one expert (more than 8: tiles of 8 rows, of 4 on the FFMA

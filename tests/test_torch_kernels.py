@@ -137,7 +137,10 @@ def test_decode_attention_f64_yardstick_matches_the_kernel(length):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,Kd,N", [(256, 512, 256), (300, 700, 500),
-                                    (128, 128, 128), (4, 96, 40), (1, 3, 5)])
+                                    (128, 128, 128), (4, 96, 40), (1, 3, 5),
+                                    # a decode batch of 128 rows, and one
+                                    # row into a second 128-row tile
+                                    (128, 192, 136), (129, 200, 264)])
 def test_tiered_matmul_matches_reference(M, Kd, N, dtype):
     xa, wa = draws(4, (M, Kd), (Kd, N), scale=0.1)
     (jx, tx), (jw, tw) = both(xa, dtype), both(wa, dtype)
@@ -213,6 +216,57 @@ def test_matmul_route_takes_tma_shapes_to_the_tensor_cores():
     assert port_mm.route(x, w[8:].view(64, 2048)) == "mma"
     assert port_mm.route(x, w[1:1 + 64 * 2048].view(64, 2048)) == "ffma"
     assert port_mm.blocks_per_sm() == 2
+
+
+# the dry run's decode products at M = 128 (gemma-2b's, chatglm3-6b's and
+# xlstm-350m's widths), a ragged M, K and N, and the route's threshold
+WGMMA_PLAN_SHAPES = [
+    (128, 2048, 2048), (128, 256, 2048), (128, 16384, 2048),
+    (128, 2048, 16384), (128, 4096, 4096), (128, 256, 4096),
+    (128, 13696, 4096), (128, 4096, 13696), (128, 6152, 1024),
+    (128, 1024, 2048), (128, 4096, 1024), (129, 264, 2000),
+    (200, 4096, 13696), (port_mm.WGMMA_MIN_M, 16384, 2048)]
+
+
+@pytest.mark.parametrize("M,N,K", WGMMA_PLAN_SHAPES)
+def test_wgmma_plan_covers_k_exactly_in_one_wave(M, N, K):
+    """The "wgmma" route's plan on a 132-SM H100: whole 64-row stages that
+    cover K with no split empty, one cluster of at most 8 blocks a tile of
+    128 columns by 128 rows of x, and a grid of one wave of the blocks the
+    SMs hold by the kernel's own shared memory (its 3-stage ring, two
+    blocks an SM; the 4-stage one runs only where one split's tiles fit
+    one block an SM), each ring fitting a block."""
+    n_split, k_chunk = port_mm.plan(M, N, K, "wgmma", 132)
+    assert 1 <= n_split <= 8
+    assert k_chunk % 64 == 0 and n_split * k_chunk >= K
+    assert (n_split - 1) * k_chunk < K                    # no empty split
+    tiles = -(-N // 128) * -(-M // 128)
+    assert tiles * n_split <= 132 * port_mm.blocks_per_sm("wgmma")
+    assert port_mm.blocks_per_sm("wgmma") == 2
+    assert max(port_mm.wgmma_smem_bytes(s) for s in (3, 4)) <= 232_448
+
+
+def test_matmul_route_takes_large_batches_to_the_warpgroup_kernel():
+    """bf16 with at least WGMMA_MIN_M rows of x, whose x and w rows TMA can
+    describe, goes to the "wgmma" kernel; one row fewer, K not a multiple
+    of 8 or an x whose address TMA cannot take, to the "mma" kernel; fp32
+    to the "ffma" kernel; the expert route never to "wgmma"."""
+    bf, t = torch.bfloat16, port_mm.WGMMA_MIN_M
+    w = torch.zeros(64, 2048, dtype=bf)
+    for M in (t, t + 1, 128, 129, 200):
+        assert port_mm.route(torch.zeros(M, 64, dtype=bf), w) == "wgmma"
+    assert port_mm.route(torch.zeros(t - 1, 64, dtype=bf), w) == "mma"
+    assert port_mm.route(torch.zeros(128, 60, dtype=bf),
+                         torch.zeros(60, 2048, dtype=bf)) == "mma"
+    xs = torch.zeros(128 * 64 + 8, dtype=bf)
+    assert port_mm.route(xs[8:].view(128, 64), w) == "wgmma"
+    assert port_mm.route(xs[1:1 + 128 * 64].view(128, 64), w) == "mma"
+    assert port_mm.route(torch.zeros(128, 64), torch.zeros(64, 2048)) \
+        == "ffma"
+    assert port_mm.route(torch.zeros(128, 64, dtype=bf),
+                         torch.zeros(64, 500, dtype=bf)) == "ffma"
+    assert port_mm.route(torch.zeros(128, 64, dtype=bf), w,
+                         experts=True) == "mma"
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
