@@ -105,14 +105,24 @@ command line run those mutants only.  The mutants:
   ranked within each warp-wide chunk of 32 rows only, so past row 31 the
   tiles take the wrong rows);
 - the knapsack DP (chip_smoke.py's knapsack checks: both routes, the
-  tie-heavy case, sizes past the capacity and of 0, behind a NaN fill of
-  shared memory): ``tie_breaks_to_new`` (``>=`` where the DP takes an
-  item only on ``>``), ``bit_order_reversed`` (each packed byte's bits in
-  the other order: column c at bit c & 7), ``oversize_item_applied`` (the
-  guard of sizes past the capacity dropped, so 2^32 + 3 is narrowed to 3
-  and applied, and 2^31 + 7 reads out of range), ``write_before_read``
-  (route 1 writes the new table back with no barrier after every thread's
-  reads).
+  tie-heavy case, sizes past the capacity and of 0, sizes that cross one
+  and two ranks, last ranks full, short and empty, clusters of 1 to 16
+  ranks, behind a NaN fill of shared memory): ``tie_breaks_to_new``
+  (``>=`` where the DP takes an item only on ``>``), ``bit_order_reversed``
+  (each packed byte's bits in the other order: column c at bit c & 7),
+  ``oversize_item_applied`` (the guard of sizes past the capacity dropped,
+  so 2^32 + 3 is narrowed to 3 and applied, and 2^31 + 7 reads out of
+  range); of route 1's cluster: ``item_barrier_removed`` (no rank waits for
+  the others' last item before it reads their buffers and overwrites its
+  own), ``barrier_counts_one_rank`` (the items' mbarriers complete on the
+  first rank's arrival), ``remote_reads_from_own_block`` (a column whose c
+  - s lies in another rank reads this rank's buffer at that offset),
+  ``parity_not_flipped`` (every item reads the same buffer and writes the
+  other), ``last_rank_columns_dropped`` (a short last rank takes no
+  column), ``bytes_at_rank0_offset`` (every rank stores its keep bytes
+  where rank 0's go), ``exit_barrier_removed`` (a block leaves without
+  waiting for the last item's arrivals: others still read its buffers and
+  arrive on its mbarriers).
 """
 
 import json
@@ -291,10 +301,25 @@ MUTANTS = {
     "oversize_item_applied": (
         KNAPSACK, "  return (uint64_t)s > (uint64_t)qcap;", "  return false;",
         "knapsack"),
-    "write_before_read": (
+    "item_barrier_removed": (
         KNAPSACK,
-        "    __syncthreads();  // every old value read before any is written\n",
-        "", "knapsack"),
+        "      if (k > 0) item_wait(bars, k - 1);  // the last item ended "
+        "everywhere\n", "", "knapsack"),
+    "barrier_counts_one_rank": (
+        KNAPSACK, "  if (tid == 0) bars_init(bars, R);",
+        "  if (tid == 0) bars_init(bars, 1);", "knapsack"),
+    "remote_reads_from_own_block": (
+        KNAPSACK, "load_rank(old_addr + 8u * (uint32_t)off, src)",
+        "load_rank(old_addr + 8u * (uint32_t)off, rank)", "knapsack"),
+    "parity_not_flipped": (KNAPSACK, "      p ^= 1;\n", "", "knapsack"),
+    "last_rank_columns_dropped": (
+        KNAPSACK, "const int own = max(0, min(width, cells - start));",
+        "const int own = start + width <= cells ? width : 0;", "knapsack"),
+    "bytes_at_rank0_offset": (
+        KNAPSACK, "store_bits(row, start + j * T + warp_c, row_bytes,",
+        "store_bits(row, j * T + warp_c, row_bytes,", "knapsack"),
+    "exit_barrier_removed": (
+        KNAPSACK, "  if (k > 0) item_wait(bars, k - 1);\n}", "}", "knapsack"),
 }
 _HEAD = r'''
 import json, sys, torch

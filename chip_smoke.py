@@ -6,6 +6,7 @@
   python3 chip_smoke.py --compare-matmul DIR
   python3 chip_smoke.py --slstm-autograd
   python3 chip_smoke.py --trace-drops
+  python3 chip_smoke.py --probe-noise
   python3 chip_smoke.py --lr-sweep ARCH LAYERS LR [LR ...]
 
 Drives the port's main path on the card and fails (non-zero exit, no
@@ -78,14 +79,19 @@ result line) if any phase fails:
                the card's own cast to e4m3 gives at the range's edges, with
                ``kv_cast`` the same bits on the card as on the CPU; the
                knapsack DP (the planner's, ``core/knapsack.py``) byte for
-               byte against its plain version and the numpy DP: the
+               byte against its plain version and the numpy DP, one launch
+               a call, its cluster's layout as the kernel computes it: the
                reference test's draw grown to 800 items (above the device
-               threshold), n 489 to 3,051 at qcap 16,384 and route 2 at
-               qcap 100,000 (timed: kernel, plain, the numpy DP on the
-               host, the keep table's copy to the host, ns an item), grids
-               of qcap + 1 no multiple of 8, n 1, sizes past the capacity
-               and of 0, a tie-heavy case, both routes on one input, behind
-               a NaN fill of shared memory and a second call;
+               threshold), n 489 to 3,051 at qcap 16,384, route 1 at qcap
+               100,000 against route 2 and route 2 at qcap 250,000 (timed:
+               kernel, plain, the numpy DP on the host, the keep table's
+               copy to the host, ns an item, the chain floor), the
+               cluster's size swept (timed), grids of qcap + 1
+               no multiple of 8, n 1, sizes past the capacity and of 0, a
+               tie-heavy case, both routes on one input, sizes that cross
+               one and two ranks, last ranks full, short and empty,
+               clusters of 1 to 16 ranks, behind a NaN fill of shared
+               memory and a second call;
 4. runtime  -- the Unimem runtime moving real tensors between HBM and
                pinned host memory (``backend="torch_async"``), bytes checked,
                plus host<->device copy rates for 1, 2 and 4 channels;
@@ -123,11 +129,12 @@ result line) if any phase fails:
                zamba2-1.2b prefill_32k at batch 1, musicgen-large's at
                batch 2; musicgen-large, phi-3-vision-4.2b, yi-6b and
                chatglm3-6b train_4k), each one required to run, with its
-               cost probes, its offload slice, its
-               attribution and its roofline row: measured peak within the
-               prediction and the prediction at most 1.25 x it, the
-               launches of a microbatch, the probes' extrapolation within
-               25 % of the measured microbatch, all required;
+               cost probes (each profiled, the extrapolation carried from
+               their device time), its offload slice, its attribution and
+               its roofline row: measured peak
+               within the prediction and the prediction at most 1.25 x it,
+               the launches of a microbatch, the probes' extrapolation
+               within 25 % of the measured microbatch, all required;
 7. serve    -- full-width gemma-2b (18 layers, d_model 2048, vocab 256000)
                served under the runtime, with every kernel launch counted;
 8. train    -- full-width gemma-2b trained for 5 steps (batch 2 x 2048
@@ -198,7 +205,8 @@ Each phase prints one JSON object; the last line is the device object.
 at DIR (the parent commit) in this run, and decode attention's e4m3 route
 at both decode_32k shapes and gemma-2b's serving shape, and its
 tiered_matmul at the dry run's M = 128 products, before and after this
-checkout's check phase, and puts them in the kernels line.
+checkout's check phase, and its knapsack DP at n 489 to 3,051 over qcap
+16,384, and puts them in the kernels line.
 The serve phases require every product of a decode step to be one launch
 of the mma.sync matmul kernel (the MoE layers' routed products one of its
 expert route), and report device operations a step; the dry run's decode
@@ -211,6 +219,9 @@ that of the checkout at DIR (see
 forward and backward with and without its written-out gradient (see
 ``slstm_autograd``); ``--trace-drops`` only counts the kernels that
 torch.profiler's trace loses at a session's head (see ``trace_drops``);
+``--probe-noise`` only runs musicgen-large's train_4k cell with a host
+slowed by a thread of its own and sets the probes' wall and device
+extrapolations beside the measured microbatch (see ``probe_noise``);
 ``--lr-sweep`` only trains a config 5 steps at each rate given (see
 ``lr_sweep``).
 Times are CUDA-event times over many queued launches (median), each
@@ -230,6 +241,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -495,6 +507,13 @@ PHI3V_TRAIN_LR = 1e-5
 KNAPSACK_QCAP = 1 << 14
 KNAPSACK_NS = (489, 1000, 2000, 3051)
 KNAPSACK_LINE_N = 2000
+# route 1's cluster sizes timed (the rule in kdp.pick_ranks follows them):
+# (kind, n, qcap, sizes) at n 2,000 over the planner's grid, and on two
+# small grids
+KNAPSACK_SWEEPS = (("planner", KNAPSACK_LINE_N, KNAPSACK_QCAP,
+                    (2, 4, 8, 12, 16)),
+                   ("ties", 4000, 4095, (1, 4, 16)),
+                   ("ties", 8000, 1000, (1, 4, 16)))
 FP64_PEAK = 34e12
 # The planner phase: the reference's chunk fixture (sim/planner_fixture.py)
 # at these chunk counts and fast tier, each plan built with the numpy DP and
@@ -1691,14 +1710,18 @@ def _knapsack_reference_draw(n_items: int = 800):
     return values[keep], qsizes, qcap
 
 
-def _knapsack_inputs(kind: str, n: int, qcap: int, seed: int):
+def _knapsack_inputs(kind: str, n: int, qcap: int, seed: int,
+                     width: int = None):
     """(values float64, qsizes int64) numpy draws: "planner" values U(0, 1)
     over sizes of 16-256 quanta (0.25-4 MiB at qcap 16,384); "ties"
     integer values from {1, 2, 3} over sizes from {1, 2, 3}, so that the
     strict comparison decides most rows; "edges" small sizes with items
     past the capacity (qcap + 1, qcap + 2, 10^6, 2^31 + 7, 2^32 + 3: a
     size narrowed to int without the guard is applied or read out of
-    range) and of size 0."""
+    range) and of size 0; "wide" sizes uniform over 1,000 to qcap, so that
+    route 1's reads of c - s cross one and two ranks; "widths" sizes at a
+    rank's width W and around it (W - 1, W, W + 1, 2 W, 2 W + 5, 0, 1 in
+    turn; W route 1's by default, or ``width``)."""
     rng = np.random.default_rng(seed)
     if kind == "ties":
         return (rng.integers(1, 4, n).astype(np.float64),
@@ -1706,6 +1729,13 @@ def _knapsack_inputs(kind: str, n: int, qcap: int, seed: int):
     values = rng.uniform(1e-3, 1.0, n)
     if kind == "planner":
         return values, rng.integers(16, 257, n).astype(np.int64)
+    if kind == "wide":
+        return values, rng.integers(1000, qcap + 1, n).astype(np.int64)
+    if kind == "widths":
+        w = width or kdp.cluster_plan(qcap).width
+        cycle = (w - 1, w, w + 1, 2 * w, 2 * w + 5, 0, 1)
+        return values, np.array([cycle[i % 7] for i in range(n)],
+                                dtype=np.int64)
     sizes = rng.integers(0, max(qcap // 4, 1), n).astype(np.int64)
     for i, s in enumerate((qcap + 1, 0, qcap + 2, 10 ** 6, 0, 2 ** 31 + 7,
                            2 ** 32 + 3)):
@@ -1714,20 +1744,29 @@ def _knapsack_inputs(kind: str, n: int, qcap: int, seed: int):
 
 
 def _knapsack_case(timer, case: str, values, qsizes, qcap: int,
-                   route=None, stale_nan=False, line=False) -> dict:
+                   route=None, stale_nan=False, line=False, ranks=None,
+                   both_routes=False, sweep=False) -> dict:
     """The kernel's keep table against its plain version on the card and
     the numpy DP (``core/knapsack.py`` ``_numpy_dp``) on the host, byte for
-    byte, and a second call's bytes against the first; also against route
-    2 where ``route`` is 2.  Timed (``timer``): kernel, plain, the numpy
-    DP on the host, the keep table's copy to the host, ns an item, the
-    bound."""
+    byte, a second call's bytes against the first, one launch a call, and
+    on route 1 the cluster's layout as the built kernel computes it
+    against ``kdp.cluster_plan`` (``ranks``: the cluster's size, by default
+    the grid's); also against the other route where ``route`` is 2 on a
+    grid route 1 takes, or ``both_routes``.  Timed (``timer``): kernel,
+    plain, the numpy DP on the host, the keep table's copy to the host, ns
+    an item, the bound and, on route 1, the chain floor (the same cluster's
+    item loop with no table work); ``sweep`` rows time the kernel alone."""
     dev = torch.device("cuda")
     v, s = torch.from_numpy(values).to(dev), torch.from_numpy(qsizes).to(dev)
     r = route or kdp.pick_route(qcap)
+    plan = kdp.cluster_plan(qcap, ranks) if r == 1 else None
+    R = plan.ranks if plan else None
     if stale_nan:
         fill_shared_memory_nan(dev)
-    out = kdp.knapsack_dp(v, s, qcap, route=r)
-    again = kdp.knapsack_dp(v, s, qcap, route=r)
+    before = kdp.launches
+    out = kdp.knapsack_dp(v, s, qcap, route=r, ranks=R)
+    again = kdp.knapsack_dp(v, s, qcap, route=r, ranks=R)
+    launched = kdp.launches - before
     plain = kdp.knapsack_dp_plain(v, s, qcap)
     torch.cuda.synchronize()
     host = knapsack._numpy_dp(values, qsizes, qcap)
@@ -1738,17 +1777,30 @@ def _knapsack_case(timer, case: str, values, qsizes, qcap: int,
     same = torch.equal(out, again)
     row = dict(kernel="knapsack_dp", dtype="float64",
                shape=dict(case=case, n=n, qcap=qcap, route=r,
-                          cells=n * qcap, stale_nan=stale_nan),
+                          cells=n * qcap, stale_nan=stale_nan, ranks=R,
+                          width=plan.width if plan else None,
+                          threads=plan.threads if plan else None),
                max_abs_err=err, same_as_plain=same_plain,
                same_as_numpy_dp=same_numpy, bit_identical_rerun=same,
-               ok=same_plain and same_numpy and same)
-    if r == 2 and qcap + 1 <= kdp.ROUTE1_CELLS:
-        one = kdp.knapsack_dp(v, s, qcap, route=1)
-        row["same_as_route_1"] = torch.equal(out, one)
-        row["ok"] = row["ok"] and row["same_as_route_1"]
+               launches_a_call=launched / 2,
+               ok=same_plain and same_numpy and same and launched == 2)
+    if plan:
+        row["layout_as_planned"] = kdp.kernel_layout(qcap, R) == plan
+        row["ok"] = row["ok"] and row["layout_as_planned"]
+    if both_routes or (r == 2 and qcap + 1 <= kdp.ROUTE1_CELLS):
+        other = kdp.knapsack_dp(v, s, qcap, route=3 - r)
+        row["same_as_route_" + str(3 - r)] = torch.equal(out, other)
+        row["ok"] = row["ok"] and torch.equal(out, other)
     if timer is None:
         return row
-    row["ms"] = timer(lambda: kdp.knapsack_dp(v, s, qcap, route=r))
+    row["ms"] = timer(lambda: kdp.knapsack_dp(v, s, qcap, route=r, ranks=R))
+    row.update(ns_per_item=row["ms"] * 1e6 / n, sweep=sweep, line=line)
+    if plan:
+        row["chain_floor_ms"] = timer(lambda: kdp.chain_floor(n, qcap, R))
+        row["chain_floor_cluster_barrier_ms"] = timer(
+            lambda: kdp.chain_floor(n, qcap, R, cluster_barrier=True))
+    if sweep:
+        return row
     row["plain_ms"] = timer(lambda: kdp.knapsack_dp_plain(v, s, qcap), n=3,
                             warmup=1)
     host_s, copy_s = [], []
@@ -1767,20 +1819,27 @@ def _knapsack_case(timer, case: str, values, qsizes, qcap: int,
     t_bytes, t_ops = nbytes / HBM_BW, adds / FP64_PEAK
     row.update(numpy_dp_ms=statistics.median(host_s) * 1e3,
                copy_to_host_ms=statistics.median(copy_s) * 1e3,
-               keep_bytes=out.numel(), ns_per_item=row["ms"] * 1e6 / n,
+               keep_bytes=out.numel(),
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               fp64_adds=adds, library_ms=None, line=line)
+               fp64_adds=adds, library_ms=None)
     return row
 
 
 def _knapsack_cases(timer) -> list:
     """The knapsack DP kernel's checks: the reference test's draw grown to
     800 items (above the device threshold, asserted), the planner's range
-    of item counts at qcap 16,384 and route 2 at qcap 100,000 (timed), grids
-    of qcap + 1 no multiple of 8, n 1, sizes past the capacity and of 0,
-    a tie-heavy case, route 2 forced where route 1 runs (the same bits),
-    and route 1 behind a NaN fill of shared memory."""
+    of item counts at qcap 16,384 (timed, with the chain floor), route 1
+    at qcap 100,000 against route 2 (timed) and route 2 past route 1's
+    cells at qcap 250,000 (timed); grids of qcap + 1 no multiple of 8, n
+    1, sizes past the capacity and of 0, a tie-heavy case, route 2 forced
+    where route 1 runs (the same bits); sizes that cross one and two
+    ranks ("wide", and "widths" at a rank's width W, 2 W and around them)
+    at 16, 8 and 2 ranks, grids whose last rank is full (qcap 16,383) or
+    short (16,415), grids on one rank and on clusters smaller than the
+    grid's, route 1 behind a NaN fill of shared memory at 16 ranks and at
+    1, and the cluster's size swept (KNAPSACK_SWEEPS; timed: the kernel and
+    the chain floor)."""
     rows = []
     values, qsizes, qcap = _knapsack_reference_draw()
     require(len(values) * qcap >= knapsack._DEVICE_MIN_WORK,
@@ -1797,9 +1856,18 @@ def _knapsack_cases(timer) -> list:
             timer, "planner", *_knapsack_inputs("planner", n, KNAPSACK_QCAP,
                                                 10 + i),
             KNAPSACK_QCAP, line=n == KNAPSACK_LINE_N))
-    rows.append(_knapsack_case(                            # route 2
+    for case, n, qcap, sizes in KNAPSACK_SWEEPS:   # the cluster's size
+        inputs = _knapsack_inputs(case, n, qcap,
+                                  10 + KNAPSACK_NS.index(KNAPSACK_LINE_N))
+        for R in sizes:
+            rows.append(_knapsack_case(timer, case, *inputs, qcap, ranks=R,
+                                       sweep=True))
+    rows.append(_knapsack_case(                            # both routes
         timer, "planner", *_knapsack_inputs("planner", 400, 100_000, 20),
-        100_000))
+        100_000, both_routes=True))
+    rows.append(_knapsack_case(                            # route 2
+        timer, "planner", *_knapsack_inputs("planner", 400, 250_000, 28),
+        250_000))
     for case, n, qcap, seed, route, stale in (
             ("planner", 700, 16_380, 21, None, False),      # 16,381 cells
             ("edges", 300, 1000, 22, None, False),          # 1,001 cells
@@ -1811,10 +1879,34 @@ def _knapsack_cases(timer) -> list:
             ("ties", 2000, 1500, 26, None, False),
             ("ties", 2000, 1500, 26, 2, False),
             ("ties", 2000, 1500, 26, None, True),
-            ("ties", 3000, KNAPSACK_QCAP, 27, None, False)):
+            ("ties", 3000, KNAPSACK_QCAP, 27, None, False),
+            ("planner", 2000, KNAPSACK_QCAP, 12, None, True),
+            ("planner", 500, 16_383, 32, None, False),      # 16 full ranks
+            ("planner", 500, 16_415, 33, None, False),      # the last short
+            ("edges", 300, 16_415, 34, None, False),
+            ("wide", 300, 100_000, 35, None, False)):
         rows.append(_knapsack_case(
             None, case, *_knapsack_inputs(case, n, qcap, seed), qcap,
             route=route, stale_nan=stale))
+    for R in (16, 8, 2):                      # reads across ranks
+        for case, seed in (("wide", 30), ("widths", 31)):
+            w = kdp.cluster_plan(KNAPSACK_QCAP, R).width
+            rows.append(_knapsack_case(
+                None, case, *_knapsack_inputs(case, 500, KNAPSACK_QCAP, seed,
+                                              width=w),
+                KNAPSACK_QCAP, ranks=R))
+    for case, n, qcap, seed, R, stale in (    # smaller clusters
+            ("ties", 2000, 1500, 26, 1, False),
+            ("ties", 2000, 1500, 26, 1, True),
+            ("edges", 300, 1000, 22, 1, False),
+            ("edges", 40, 0, 23, 16, False),                # 15 empty ranks
+            ("edges", 300, 1000, 22, 16, False),
+            ("widths", 500, 4095, 36, 3, False),
+            ("planner", 2000, 4095, 37, None, False)):
+        rows.append(_knapsack_case(
+            None, case, *_knapsack_inputs(
+                case, n, qcap, seed, width=kdp.cluster_plan(qcap, R).width),
+            qcap, ranks=R, stale_nan=stale))
     return rows
 
 
@@ -2943,6 +3035,10 @@ def _step_cell_checks(cfg, rec, pred) -> None:
         require(ri["probes"][f"L{Lp}"]["launches"] == want,
                 f"{cid}: the {Lp}-layer probe's launches "
                 f"{ri['probes'][f'L{Lp}']['launches']} == {want}")
+    require(ri["extrapolated_from"] == "device_ms" and all(
+        p["device_ms"] > 0 for p in ri["probes"].values()),
+            f"{cid}: the probes' extrapolation carries their profiled "
+            "device time")
     per_mb = rec["ms_a_step_extrapolated"] / (rec["microbatches"] or 1)
     require(abs(per_mb - rec["ms_a_microbatch"])
             <= DRYRUN_EXTRAP_TOL * rec["ms_a_microbatch"],
@@ -2968,6 +3064,11 @@ def _step_cell_checks(cfg, rec, pred) -> None:
                 "the forward's)")
 
 
+def _probe_profile(run, steps: int, wall_ms: float) -> dict:
+    """A cost probe's profile (:func:`_device_profile`, no groups)."""
+    return _device_profile(run, steps, wall_ms)
+
+
 def _dryrun_steps(hbm: int, preds: dict) -> list:
     """The train and prefill cells of DRYRUN_STEP_CELLS, each predicted to
     fit and each run as a path with ``--attribution`` and its roofline
@@ -2982,7 +3083,7 @@ def _dryrun_steps(hbm: int, preds: dict) -> list:
         _free()
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, hbm_bytes=hbm, attribution=True,
-                              steps=2, **cuts)
+                              steps=2, probe_profile=_probe_profile, **cuts)
         rec["seconds"] = time.perf_counter() - t0
         rec["roofline"] = roofline.analyze(rec)
         emit(dict(phase="dryrun", **rec))
@@ -3740,16 +3841,26 @@ def phase_distributed() -> dict:
     return res
 
 
-def _knapsack_line(checks, paths) -> dict:
+def _knapsack_line(checks, paths, parent=None) -> dict:
     """knapsack_dp's row of the kernels line: the n 2,000 row at qcap
     16,384 (the 2,000-chunk fixture's global solve), with every timed
-    size under ``shapes``; launches from the planner phase."""
+    size under ``shapes`` (``parent_ms``: the checkout given with
+    ``--parent`` at the same n and qcap, ``parent``: {n: ms}) and the
+    cluster-size sweep under ``ranks_sweep``; launches from the planner
+    phase.  ``chain_floor_ms``: the same cluster's item loop with no table
+    work, the least the solve can take in this design."""
     mine = [r for r in checks if r["kernel"] == "knapsack_dp"]
-    timed = [r for r in mine if "ms" in r]
+    timed = [r for r in mine if "ms" in r and not r["sweep"]]
     main = next(r for r in timed if r["line"])
     by_path = {p["phase"]: p["launches"]["knapsack_dp"] for p in paths}
     keys = ("ms", "plain_ms", "numpy_dp_ms", "copy_to_host_ms",
             "ns_per_item", "bound_ms", "bound_by", "launch_floor_ms")
+
+    def parent_of(r):
+        sh = r["shape"]
+        return ((parent or {}).get(str(sh["n"]))
+                if sh["qcap"] == KNAPSACK_QCAP and sh["case"] == "planner"
+                else None)
     src, replaces = KERNELS["knapsack_dp"]
     row = dict(name="knapsack_dp", route="cuda", source=src,
                replaces=replaces, launches=sum(by_path.values()),
@@ -3757,6 +3868,11 @@ def _knapsack_line(checks, paths) -> dict:
                max_abs_err=max(r["max_abs_err"] for r in mine),
                checks=len(mine), checks_ok=sum(r["ok"] for r in mine),
                **{k: main[k] for k in keys}, library_ms=None,
+               chain_floor_ms=main["chain_floor_ms"],
+               chain_floor_cluster_barrier_ms=main[
+                   "chain_floor_cluster_barrier_ms"],
+               parent_ms=parent_of(main), ranks=main["shape"]["ranks"],
+               width=main["shape"]["width"],
                library="none: no PyTorch call computes the DP",
                note=("no Pallas kernel: the reference runs the DP as one "
                      "jitted lax.scan (src/repro/core/knapsack.py:76 "
@@ -3764,13 +3880,27 @@ def _knapsack_line(checks, paths) -> dict:
                      "card's host"),
                covers=(f"one call, n {main['shape']['n']} over qcap "
                        f"{main['shape']['qcap']} (route "
-                       f"{main['shape']['route']}), the 2,000-chunk "
+                       f"{main['shape']['route']}, "
+                       f"{main['shape']['ranks']} ranks), the 2,000-chunk "
                        "fixture's global solve"),
                path=[p for p, n in by_path.items() if n])
     row["shapes"] = [dict(case=r["shape"]["case"], n=r["shape"]["n"],
                           qcap=r["shape"]["qcap"], route=r["shape"]["route"],
+                          ranks=r["shape"]["ranks"],
                           max_abs_err=r["max_abs_err"],
+                          chain_floor_ms=r.get("chain_floor_ms"),
+                          parent_ms=parent_of(r),
                           **{k: r[k] for k in keys}) for r in timed]
+    row["ranks_sweep"] = [dict(case=r["shape"]["case"], n=r["shape"]["n"],
+                               qcap=r["shape"]["qcap"],
+                               ranks=r["shape"]["ranks"],
+                               width=r["shape"]["width"],
+                               threads=r["shape"]["threads"], ms=r["ms"],
+                               ns_per_item=r["ns_per_item"],
+                               chain_floor_ms=r["chain_floor_ms"],
+                               chain_floor_cluster_barrier_ms=r[
+                                   "chain_floor_cluster_barrier_ms"])
+                          for r in mine if "ms" in r and r["sweep"]]
     return row
 
 
@@ -3794,7 +3924,8 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
     checkout's checks ({"decode_attention_e4m3": {label: [ms, ms]}}), and
     its tiered_matmul at the M = 128 products likewise
     ({"tiered_matmul@M128": [{label: ms}, {label: ms}]}), summed into the
-    "arch@M128" entries of tiered_matmul's shapes."""
+    "arch@M128" entries of tiered_matmul's shapes, and its knapsack DP at
+    KNAPSACK_NS ({"knapsack_dp": {n: ms}})."""
     def pick(kernel, cond):
         return [r for r in checks if r["kernel"] == kernel
                 and cond(r["dtype"], r["shape"])]
@@ -3896,7 +4027,8 @@ def kernel_line(checks, paths, parent_ms=None) -> dict:
                           (parent_ms or {}).get("tiered_matmul@M128"))
         row["shapes"] += _prefill_shapes(checks, name)
         out.append(row)
-    out.append(_knapsack_line(checks, paths))
+    out.append(_knapsack_line(checks, paths,
+                              (parent_ms or {}).get("knapsack_dp")))
     return {"kernels": out}
 
 
@@ -4200,6 +4332,64 @@ def trace_drops() -> int:
     return 0
 
 
+def _hog_host(duty: float, stop: threading.Event) -> None:
+    """Hold the interpreter's lock ``duty`` of each 2 ms until ``stop``."""
+    while not stop.is_set():
+        t = time.perf_counter()
+        while time.perf_counter() - t < 0.002 * duty:
+            pass
+        time.sleep(0.002 * (1.0 - duty) + 1e-6)
+
+
+def probe_noise() -> int:
+    """``python3 chip_smoke.py --probe-noise``: musicgen-large's train_4k
+    cell (2 of its fitted microbatches a step, steps and probes profiled)
+    three times, with a thread of the process holding the interpreter's
+    lock 0, 50 and 100 % of the time; one JSON line each: the measured
+    microbatch, the device's busy time and idle share in the steps, and
+    the probes' extrapolation a microbatch from their device time and from
+    their wall time, with each probe's numbers."""
+    phase_device()
+    phase_build()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    for duty in (0.0, 0.5, 1.0):
+        stop = threading.Event()
+        hog = threading.Thread(target=_hog_host, args=(duty, stop),
+                               daemon=True)
+        if duty:
+            hog.start()
+        _free()
+        try:
+            rec = dryrun.run_cell("musicgen-large", "train_4k",
+                                  hbm_bytes=hbm, steps=2, microbatches_run=2,
+                                  profile=_probe_profile,
+                                  probe_profile=_probe_profile)
+        finally:
+            stop.set()
+            if duty:
+                hog.join()
+        ri = rec["roofline_inputs"]
+        L1, L2 = ri["probe_layers"]
+        p1, p2 = ri["probes"][f"L{L1}"], ri["probes"][f"L{L2}"]
+        mb = rec["microbatches"]
+        wall = dryrun._extrap(p1["ms"], p2["ms"], L1, L2, rec["n_layers"])
+        emit(dict(phase="probe_noise", cell=rec["cell"], mode=rec["mode"],
+                  host_lock_duty=duty, ms_a_microbatch=rec["ms_a_microbatch"],
+                  ms_per_step=rec["ms_per_step"],
+                  device_busy_ms_per_step=rec["profile"][
+                      "device_busy_ms_per_step"],
+                  device_idle_share=rec["profile"]["device_idle_share"],
+                  extrapolated_device_ms_a_microbatch=rec[
+                      "ms_a_step_extrapolated"] / mb,
+                  extrapolated_wall_ms_a_microbatch=wall,
+                  probes={k: dict(ms=p["ms"], ms_per_run=p["ms_per_run"],
+                                  device_ms=p["device_ms"],
+                                  device_idle_share=p["profile"][
+                                      "device_idle_share"])
+                          for k, p in ri["probes"].items()}))
+    return 0
+
+
 def slstm_autograd() -> int:
     """``python3 chip_smoke.py --slstm-autograd``: one full-width sLSTM
     layer of xlstm-350m (batch 2 x 2048, bf16 weights from a seed),
@@ -4283,6 +4473,39 @@ bwd = timer(lambda: ss.ssd_scan_bwd(a, k, v, q, dy, st, fin, None, chunk,
                                     False), 20)
 print(json.dumps(dict(ssd_scan=fwd, ssd_scan_bwd=bwd)), flush=True)
 """
+
+
+# Run in a checkout's root: its own chip_smoke.Timer over its knapsack DP
+# at KNAPSACK_NS items over qcap 16,384 (the check phase's draws); prints
+# one JSON object, n: ms.
+_KNAPSACK_PARENT_SNIPPET = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from repro_torch.kernels import knapsack_dp as kdp
+timer = cs.Timer()
+out = {}
+for i, n in enumerate(cs.KNAPSACK_NS):
+    values, qsizes = cs._knapsack_inputs("planner", n, cs.KNAPSACK_QCAP,
+                                         10 + i)
+    v, s = torch.from_numpy(values).cuda(), torch.from_numpy(qsizes).cuda()
+    out[n] = timer(lambda: kdp.knapsack_dp(v, s, cs.KNAPSACK_QCAP))
+print(json.dumps(out), flush=True)
+"""
+
+
+def parent_knapsack_ms(other: str) -> dict:
+    """``--parent DIR``: the knapsack DP of the checkout at DIR at
+    KNAPSACK_NS items over qcap 16,384, timed by that checkout's ``Timer``
+    in its own process on this card: {n: ms}."""
+    out = subprocess.run([sys.executable, "-c", _KNAPSACK_PARENT_SNIPPET],
+                         cwd=os.path.abspath(other), capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"the parent's knapsack DP: {out.stderr[-2000:]}")
+    ms = json.loads(out.stdout.strip().splitlines()[-1])
+    emit(dict(phase="parent_knapsack_dp", tree=other, ms=ms))
+    return ms
 
 
 # Run in a checkout's root: its own chip_smoke.Timer over its decode
@@ -4393,6 +4616,8 @@ def main() -> int:
         return slstm_autograd()
     if sys.argv[1:] == ["--trace-drops"]:
         return trace_drops()
+    if sys.argv[1:] == ["--probe-noise"]:
+        return probe_noise()
     if len(sys.argv) >= 5 and sys.argv[1] == "--lr-sweep":
         return lr_sweep(sys.argv[2], int(sys.argv[3]),
                         [float(x) for x in sys.argv[4:]])
@@ -4425,6 +4650,8 @@ def main() -> int:
             for label in e4m3_parent[0]}
         m128_parent.append(timed("parent", parent_m128_ms, parent))
         parent_ms["tiered_matmul@M128"] = m128_parent
+        parent_ms["knapsack_dp"] = timed("parent", parent_knapsack_ms,
+                                         parent)
     timed("runtime", phase_runtime, timer)
     for arch, heads, head_dim in (
             ("gemma-2b", None, None), ("zamba2-1.2b", None, None),

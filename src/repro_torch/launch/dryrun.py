@@ -559,8 +559,8 @@ def _extrap(a: float, b: float, L1: int, L2: int, L: int) -> float:
 
 def cost_probes(cfg: ArchConfig, shape: ShapeConfig, mode: str,
                 microbatches: int, *, device: str = "cuda",
-                opt_cfg: Optional[AdamWConfig] = None, seed: int = 0
-                ) -> Dict[str, Any]:
+                opt_cfg: Optional[AdamWConfig] = None, seed: int = 0,
+                profile: Optional[Callable] = None) -> Dict[str, Any]:
     """The reference's two reduced-layer probes (L1 and L2 layers,
     :func:`_reduced_layer_counts`), each run on the card: the cell's
     program at one microbatch (``microbatches=1``) on one microbatch of the
@@ -580,7 +580,15 @@ def cost_probes(cfg: ArchConfig, shape: ShapeConfig, mode: str,
     (L - L2) / (L2 - L1), 16 at gemma-2b, whose 2-layer prefill probe
     took 98.7-112.9 ms a run on an H100 (the 1-layer one 71.1-75.5): the
     medians put its forward 45 % over the measured one, the least runs
-    within 15 %."""
+    within 15 %.  ``profile(run, runs, wall_ms)``, if given (as
+    :func:`run_cell`'s ``probe_profile``), is called after the timed runs
+    with a function that runs ``PROBE_BATCH`` more; its
+    ``device_busy_ms_per_step`` (plus ``update_ms``, fused) is the probe's
+    ``device_ms``, and the extrapolation carries ``device_ms`` and not
+    ``ms``: a probe of one or two layers can be bound by the host's
+    launches where the full depth is not, so that its wall time moves
+    with the host's speed, and the extrapolation, which multiplies the
+    probes' difference, moves more."""
     opt_cfg = opt_cfg or AdamWConfig()
     L1, L2 = _reduced_layer_counts(cfg)
     L = cfg.n_layers
@@ -641,16 +649,25 @@ def cost_probes(cfg: ArchConfig, shape: ShapeConfig, mode: str,
             launches={k: n / runs for k, n in launches.items() if n})
         if upd:
             probe["update_ms"] = min(upd)
+        if profile is not None:
+            def run():
+                for _ in range(PROBE_BATCH):
+                    (grads_step or step)(params, state, batch)
+            prof = profile(run, PROBE_BATCH, min(ms) - min(upd or [0.0]))
+            probe["device_ms"] = (prof["device_busy_ms_per_step"]
+                                  + min(upd or [0.0]))
+            probe["profile"] = prof
         out[f"L{Lp}"] = probe
         del params, state, batch, res
     c1, c2 = out[f"L{L1}"], out[f"L{L2}"]
 
     ex = lambda key: _extrap(c1[key], c2[key], L1, L2, L)  # noqa: E731
-    # the probes' ms carried to L layers, times the microbatches (fused:
-    # AdamW's part once)
-    step_ms = ex("ms") * microbatches
+    # the probes' ms (profiled: their device ms) carried to L layers, times
+    # the microbatches (fused: AdamW's part once)
+    key = "ms" if profile is None else "device_ms"
+    step_ms = ex(key) * microbatches
     if mode == "fused":
-        step_ms = (ex("ms") - ex("update_ms")) * microbatches + ex(
+        step_ms = (ex(key) - ex("update_ms")) * microbatches + ex(
             "update_ms")
     flops = _extrap(c1["cost"]["flops"], c2["cost"]["flops"], L1, L2, L)
     hbytes = _extrap(c1["cost"]["bytes"], c2["cost"]["bytes"], L1, L2, L)
@@ -661,7 +678,8 @@ def cost_probes(cfg: ArchConfig, shape: ShapeConfig, mode: str,
                            "each probe's depth",
             "probe_batch": b,
             "reduced": {"probe_batch": [shape.global_batch, b]},
-            "ms_a_step_extrapolated": step_ms, "probes": out}
+            "ms_a_step_extrapolated": step_ms, "extrapolated_from": key,
+            "probes": out}
 
 
 def offload_slice_step(blocks, grads, opt_cfg: AdamWConfig
@@ -840,7 +858,8 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
              steps: int = 3, attribution: bool = False,
              predict_only: bool = False, seed: int = 0,
              microbatches_run: Optional[int] = None, probes: bool = True,
-             profile: Optional[Callable] = None, mesh: str = "1",
+             profile: Optional[Callable] = None,
+             probe_profile: Optional[Callable] = None, mesh: str = "1",
              flat_dp: bool = False) -> Dict[str, Any]:
     """One cell's record.  ``reduced``, ``batch`` and ``seq_len`` cut it
     and ``microbatches_run`` cuts a train step to that many of its fitted
@@ -849,9 +868,10 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
     that runs also runs its cost probes (an offload cell runs its AdamW
     slice in any case); ``profile(run, steps, wall_ms)``, if given, is called after the
     timed steps with a function that runs ``steps`` more and its result
-    stored under ``profile``.  ``mesh`` other than "1" (with ``flat_dp``)
-    predicts the cell on that production mesh (:func:`mesh_cell`; with
-    ``predict_only`` only)."""
+    stored under ``profile``; ``probe_profile``, the same for each cost
+    probe, which then extrapolate their device time (:func:`cost_probes`).
+    ``mesh`` other than "1" (with ``flat_dp``) predicts the cell on that
+    production mesh (:func:`mesh_cell`; with ``predict_only`` only)."""
     if mesh not in MESHES:
         raise ValueError(f"mesh must be one of {MESHES}, not {mesh!r}")
     if mesh != "1" and not predict_only:
@@ -892,7 +912,8 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda",
                       hbm_bytes=hbm_bytes, steps=steps,
                       attribution=attribution, predict_only=predict_only,
                       seed=seed, microbatches_run=microbatches_run,
-                      probes=probes, profile=profile)
+                      probes=probes, profile=profile,
+                      probe_profile=probe_profile)
 
 
 def _decode_cell(cfg, shape, cid, cuts, *, device, hbm_bytes, steps,
@@ -961,7 +982,7 @@ def _decode_cell(cfg, shape, cid, cuts, *, device, hbm_bytes, steps,
 
 def _step_cell(cfg, shape, cid, cuts, *, device, hbm_bytes, steps,
                attribution, predict_only, seed, microbatches_run, probes,
-               profile):
+               profile, probe_profile):
     """A train or prefill cell (see the module's docstring)."""
     opt_cfg = AdamWConfig()
     limit = HBM_FRACTION * hbm_bytes
@@ -1069,7 +1090,7 @@ def _step_cell(cfg, shape, cid, cuts, *, device, hbm_bytes, steps,
     if probes:
         t0 = time.perf_counter()
         ri = cost_probes(cfg, shape, mode, mb or 1, device=device,
-                         opt_cfg=opt_cfg, seed=seed)
+                         opt_cfg=opt_cfg, seed=seed, profile=probe_profile)
         rec["roofline_inputs"] = ri
         rec["ms_a_step_extrapolated"] = ri["ms_a_step_extrapolated"]
         parts["probes"] = time.perf_counter() - t0

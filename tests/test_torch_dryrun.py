@@ -560,6 +560,78 @@ def test_cost_probes_extrapolate_as_the_reference(arch, shape, mode,
         assert p["measured_peak_bytes"] is None
 
 
+@pytest.mark.parametrize("arch,shape,mode", [
+    ("gemma-2b", "train_4k", "offload-grads"),
+    ("zamba2-1.2b", "train_4k", "fused")])
+def test_cost_probes_extrapolate_their_profiled_device_time(arch, shape,
+                                                            mode,
+                                                            monkeypatch):
+    """Given ``profile``, each probe is profiled over ``PROBE_BATCH`` more
+    runs of its program, its ``device_ms`` is the profile's busy time a
+    run (plus ``update_ms``, fused), and the reference's ``cost_probes``
+    fed ``device_ms`` gives the port's ms a step, whatever the wall
+    times."""
+    cfg = get_config(arch).reduced()
+    mb = 2
+    busy = iter([5.0, 8.0])
+    calls = []
+
+    def profile(run, runs, wall_ms):
+        run()
+        calls.append((runs, wall_ms))
+        return {"device_busy_ms_per_step": next(busy)}
+
+    got = dryrun.cost_probes(cfg, _cell_shape(shape), mode, mb,
+                             device="cpu", profile=profile)
+    probes = got["probes"]
+    assert got["extrapolated_from"] == "device_ms"
+    assert [c[0] for c in calls] == [dryrun.PROBE_BATCH] * 2
+    for (runs, wall_ms), p, b in zip(
+            calls, probes.values(), (5.0, 8.0)):
+        upd = p.get("update_ms", 0.0)
+        assert (mode == "fused") == ("update_ms" in p)
+        assert wall_ms == pytest.approx(p["ms"] - upd, rel=1e-12)
+        assert p["device_ms"] == b + upd
+    monkeypatch.setattr(ref_dryrun, "build_cell",
+                        lambda c, *a, **kw: (_Compiled(c.n_layers), (), {}))
+
+    def ref(key):
+        monkeypatch.setattr(ref_dryrun, "_cost", lambda c: {
+            "flops": key(probes[f"L{c.n_layers}"]), "bytes": 0.0})
+        return ref_dryrun.cost_probes(ref_config(arch).reduced(),
+                                      REF_SHAPES[shape], None,
+                                      offload=mode == "offload-grads")[
+            "flops_per_device"]
+    if mode == "fused":
+        upd = ref(lambda p: p["update_ms"])
+        fb = ref(lambda p: p["device_ms"] - p["update_ms"])
+        assert got["ms_a_step_extrapolated"] == pytest.approx(
+            fb * mb + upd, rel=1e-12)
+    else:
+        assert got["ms_a_step_extrapolated"] == ref(
+            lambda p: p["device_ms"]) * mb
+
+
+def test_run_cell_profiles_its_probes_with_probe_profile():
+    """``probe_profile`` reaches the cost probes (each profiled once, the
+    extrapolation from their device time) and not the cell's steps."""
+    calls = []
+
+    def probe_profile(run, runs, wall_ms):
+        run()
+        calls.append(runs)
+        return {"device_busy_ms_per_step": 1.0 + len(calls)}
+
+    r = dryrun.run_cell("gemma-2b", "prefill_32k", hbm_bytes=H100_BYTES,
+                        probe_profile=probe_profile, **CUT)
+    ri = r["roofline_inputs"]
+    assert calls == [dryrun.PROBE_BATCH] * 2 and "profile" not in r
+    assert ri["extrapolated_from"] == "device_ms"
+    assert [p["device_ms"] for p in ri["probes"].values()] == [2.0, 3.0]
+    assert r["ms_a_step_extrapolated"] == dryrun._extrap(2.0, 3.0, *ri[
+        "probe_layers"], r["n_layers"])
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_offload_programs_keys_and_slices(arch):
     """At the full configs, nothing allocated: the reference's keys, its

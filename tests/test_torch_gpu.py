@@ -903,18 +903,25 @@ def test_reduced_zamba2_forward_and_decode_on_card_match_the_cpu(cuda):
                     caches["cpu"]["mamba"][name], rtol=tol, atol=tol)
 
 
-def _knapsack_inputs(kind, n, qcap, seed):
+def _knapsack_inputs(kind, n, qcap, seed, width=None):
     """chip_smoke.py's knapsack inputs: "planner" values U(0, 1) over
     16-256 quanta, "ties" integer values and sizes from {1, 2, 3}, "edges"
-    small sizes with items past the capacity (up to 2^32 + 3) and of 0."""
+    small sizes with items past the capacity (up to 2^32 + 3) and of 0,
+    "wide" sizes over 1,000 to qcap, "widths" sizes at and around a rank's
+    width (W - 1, W, W + 1, 2 W, 2 W + 5, 0, 1 in turn)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     if kind == "ties":
         values = rng.integers(1, 4, n).astype(np.float64)
         sizes = rng.integers(1, 4, n)
+    elif kind == "widths":
+        values = rng.uniform(1e-3, 1.0, n)
+        cycle = (width - 1, width, width + 1, 2 * width, 2 * width + 5, 0, 1)
+        sizes = np.array([cycle[i % 7] for i in range(n)])
     else:
         values = rng.uniform(1e-3, 1.0, n)
         sizes = (rng.integers(16, 257, n) if kind == "planner"
+                 else rng.integers(1000, qcap + 1, n) if kind == "wide"
                  else rng.integers(0, max(qcap // 4, 1), n))
     if kind == "edges":
         for i, s in enumerate((qcap + 1, 0, qcap + 2, 10 ** 6, 0,
@@ -945,13 +952,14 @@ def test_knapsack_dp_kernel_is_the_plain_versions_bytes(cuda, kind, n, qcap,
 
 
 def test_knapsack_dp_route_2_takes_grids_past_shared_memory(cuda):
+    """Past route 1's cells (231,936: 16 ranks of 14,496 columns)."""
     kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
-    v, s = _knapsack_inputs("planner", 400, 100_000, 5)
-    assert kdp.pick_route(100_000) == 2
-    keep = kdp.knapsack_dp(v, s, 100_000)
-    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, 100_000))
+    v, s = _knapsack_inputs("planner", 100, 250_000, 5)
+    assert kdp.pick_route(250_000) == 2
+    keep = kdp.knapsack_dp(v, s, 250_000)
+    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, 250_000))
     with pytest.raises(RuntimeError, match="route 1"):
-        kdp.knapsack_dp(v, s, 100_000, route=1)
+        kdp.knapsack_dp(v, s, 250_000, route=1)
 
 
 @pytest.mark.parametrize("kind,n,qcap", [("ties", 2000, 1500),
@@ -963,6 +971,69 @@ def test_knapsack_dp_kernel_ignores_stale_shared_memory(cuda, kind, n, qcap):
     da.fill_shared_memory_nan(v.device)
     keep = kdp.knapsack_dp(v, s, qcap, route=1)
     assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, qcap))
+
+
+# route 1's cluster at sizes 1 to 16: today's cases (one rank only where
+# one rank holds the grid), sizes across ranks, last ranks short or full
+_CLUSTER_CASES = [(kind, n, qcap, ranks)
+                  for kind, n, qcap in (("planner", 489, 16384),
+                                        ("planner", 300, 16380),
+                                        ("edges", 300, 1000), ("edges", 40, 0),
+                                        ("edges", 1, 7), ("ties", 2000, 1500),
+                                        ("ties", 1000, 16384),
+                                        ("wide", 300, 16384),
+                                        ("widths", 300, 16384),
+                                        ("planner", 300, 16383),
+                                        ("planner", 300, 16415),
+                                        ("wide", 200, 100_000))
+                  for ranks in (1, 2, 8, 16)
+                  # the ranks' two buffers fit a block (14,496 columns)
+                  if ((qcap + ranks) // ranks + 31) // 32 * 32 <= 14_496]
+
+
+@pytest.mark.parametrize("kind,n,qcap,ranks", _CLUSTER_CASES)
+def test_knapsack_dp_cluster_route_is_the_plain_versions_bytes(
+        cuda, kind, n, qcap, ranks):
+    """The cluster route at ``ranks`` blocks: the plain version's bytes,
+    the same bytes from a second call, one launch a call, and the layout
+    the kernel computes is ``cluster_plan``'s."""
+    kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
+    plan = kdp.cluster_plan(qcap, ranks)
+    assert kdp.kernel_layout(qcap, ranks) == plan
+    v, s = _knapsack_inputs(kind, n, qcap, n + ranks, width=plan.width)
+    before = kdp.launches
+    keep = kdp.knapsack_dp(v, s, qcap, route=1, ranks=ranks)
+    assert kdp.launches == before + 1
+    again = kdp.knapsack_dp(v, s, qcap, route=1, ranks=ranks)
+    assert kdp.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, qcap))
+    assert torch.equal(keep, again)
+
+
+@pytest.mark.parametrize("kind,n,qcap,ranks", [
+    ("planner", 2000, 16384, 16), ("wide", 300, 16384, 16),
+    ("ties", 2000, 1500, 1), ("edges", 300, 1000, 1)])
+def test_knapsack_dp_cluster_route_ignores_stale_shared_memory(
+        cuda, kind, n, qcap, ranks):
+    """Behind a NaN fill of every SM's shared memory, at 16 ranks and at
+    one."""
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
+    v, s = _knapsack_inputs(kind, n, qcap, 9)
+    da.fill_shared_memory_nan(v.device)
+    keep = kdp.knapsack_dp(v, s, qcap, route=1, ranks=ranks)
+    assert torch.equal(keep, kdp.knapsack_dp_plain(v, s, qcap))
+
+
+def test_knapsack_dp_chain_floor_launches_and_counts_no_launch(cuda):
+    kdp = importlib.import_module("repro_torch.kernels.knapsack_dp")
+    before = kdp.launches
+    kdp.chain_floor(100, 16384)
+    kdp.chain_floor(0, 16384, 2)
+    kdp.chain_floor(100, 16384, cluster_barrier=True)
+    torch.cuda.synchronize()
+    assert kdp.launches == before
 
 
 def test_planner_with_the_device_dp_on_card_builds_the_numpy_plan(cuda):

@@ -128,7 +128,7 @@ def _plain(values, qsizes, qcap):
 # tenth of its grid, the reference draw and n 489 at the grid itself.
 CASES = [("planner", n, qcap, 10 + i) for i, (n, qcap) in enumerate(
     ((489, QCAP), (489, 1638), (1000, 1638), (2000, 1638), (3051, 1638)))]
-CASES += [("planner", 40, 20_000, 20),       # past route 1's 17,408 cells
+CASES += [("planner", 40, 20_000, 20),       # 20,001 cells: 16 ranks of 1,280
           ("planner", 70, 1000, 21),         # 1,001 cells: no multiple of 8
           ("edges", 300, 1000, 22), ("edges", 40, 0, 23),
           ("planner", 1, QCAP, 24), ("edges", 1, 7, 25),
@@ -272,3 +272,140 @@ def test_planner_with_the_device_dp_builds_the_reference_plan(
     assert jax_runs[0] == len(above)
     assert port.to_json() == ref.to_json()
     assert isinstance(port, port_core.PlanProgram)
+
+
+# ------------------------------------------- route 1's cluster layout
+LAYOUT_GRIDS = [0, 7, 1000, 4095, 16_383, QCAP, 16_415, 100_000,
+                kdp.ROUTE1_CELLS - 1]
+
+
+def _plans(qcap):
+    """The default plan of a grid and every cluster size that holds it."""
+    plans = [kdp.cluster_plan(qcap)]
+    for r in range(1, kdp.MAX_RANKS + 1):
+        try:
+            plans.append(kdp.cluster_plan(qcap, r))
+        except ValueError:
+            assert ((qcap + r) // r + 31) // 32 * 32 > kdp.MAX_WIDTH
+    return plans
+
+
+@pytest.mark.parametrize("qcap", LAYOUT_GRIDS)
+def test_cluster_plan_covers_every_cell_once(qcap):
+    """Every column of the grid belongs to one thread of one rank; rank
+    starts are multiples of 32, so a warp's 32 columns are 4 whole keep
+    bytes of one rank; at most 16 ranks of at most 1,024 threads."""
+    cells = qcap + 1
+    for plan in _plans(qcap):
+        assert 1 <= plan.ranks <= kdp.MAX_RANKS
+        assert plan.width % 32 == 0 and plan.threads % 32 == 0
+        assert 64 <= plan.threads <= kdp.MAX_RANK_THREADS
+        workers = plan.threads - 32
+        owner = np.zeros(plan.ranks * plan.width, dtype=np.int64)
+        for r in range(plan.ranks):
+            start = r * plan.width
+            assert start % 32 == 0
+            for j in range(plan.cols):
+                col = j * workers + np.arange(workers)
+                col = col[col < plan.width]
+                assert len(col) % 32 == 0      # whole warps in the rank
+                np.add.at(owner, start + col, 1)
+        assert (owner[:cells] == 1).all(), plan
+        assert plan.ranks * plan.width >= cells
+
+
+@pytest.mark.parametrize("qcap", LAYOUT_GRIDS)
+def test_cluster_plan_fits_a_blocks_shared_memory(qcap):
+    for plan in _plans(qcap):
+        assert plan.smem == kdp.BAR_BYTES + 2 * plan.width * 8
+        assert plan.smem <= kdp.MAX_SMEM == 232_448
+    assert kdp.cluster_plan(qcap).ranks == kdp.pick_ranks(qcap)
+
+
+def test_cluster_plan_refuses_what_no_cluster_holds():
+    with pytest.raises(ValueError, match="past"):
+        kdp.cluster_plan(kdp.ROUTE1_CELLS)
+    with pytest.raises(ValueError, match="past"):
+        kdp.cluster_plan(QCAP, 1)             # 2 x 16,416 doubles
+    for ranks in (0, 17):
+        with pytest.raises(ValueError, match="out of"):
+            kdp.cluster_plan(QCAP, ranks)
+
+
+def test_small_grids_run_on_few_ranks_and_the_planners_on_16():
+    assert [kdp.pick_ranks(q) for q in (0, 7, 1000)] == [1, 1, 4]
+    assert kdp.pick_ranks(4095) == 16
+    assert kdp.pick_ranks(QCAP) == kdp.pick_ranks(100_000) == 16
+
+
+def test_pick_route_takes_route_1_up_to_its_cells_and_route_2_past():
+    assert kdp.ROUTE1_CELLS == 16 * kdp.MAX_WIDTH == 231_936
+    for qcap in (0, QCAP, 100_000, kdp.ROUTE1_CELLS - 1):
+        assert kdp.pick_route(qcap) == 1
+        kdp.cluster_plan(qcap)
+    for qcap in (kdp.ROUTE1_CELLS, 250_000, 10 ** 6):
+        assert kdp.pick_route(qcap) == 2
+
+
+@pytest.mark.parametrize("qcap,ranks", [(QCAP, 16), (QCAP, 2), (16_415, 16),
+                                        (16_383, 16), (1000, 3)])
+def test_source_rank_and_offset_are_direct_indexing(qcap, ranks):
+    """Where column c of rank r reads table[c - s] (the kernel's ``relax``,
+    mirrored by ``kdp.source``), held against direct indexing of a numpy
+    table cut into the ranks' columns."""
+    plan = kdp.cluster_plan(qcap, ranks)
+    W, cells = plan.width, qcap + 1
+    table = np.random.default_rng(ranks).uniform(size=ranks * W)
+    per_rank = table.reshape(ranks, W)
+    for s in (0, 1, W - 1, W, 2 * W + 5, qcap):
+        for c in range(cells):
+            r, col = divmod(c, W)
+            src, off = kdp.source(r, col, s, W)
+            if c < s:
+                assert src < 0
+                continue
+            assert 0 <= off < W and src in (r - s // W, r - s // W - 1)
+            assert per_rank[src, off] == table[c - s]
+
+
+def _emulate_cluster(values, qsizes, qcap, ranks):
+    """Route 1's algorithm on the host: each rank's registers and two
+    buffers, reads through ``kdp.source``, the strict compare, each warp's
+    ballot stored at its rank's offset; the keep table."""
+    plan = kdp.cluster_plan(qcap, ranks)
+    R, W, cells = plan.ranks, plan.width, qcap + 1
+    reg = np.zeros((R, W))
+    bufs = np.zeros((2, R, W))
+    keep = np.zeros((len(values), (qcap + 8) // 8), dtype=np.uint8)
+    cols = np.arange(W)
+    p = 0
+    for i, (s, v) in enumerate(zip(qsizes.tolist(), values.tolist())):
+        if s < 0 or s > qcap:
+            continue
+        bits = np.zeros(R * W, dtype=bool)
+        for r in range(R):
+            own = max(0, min(W, cells - r * W))
+            src, off = np.vectorize(kdp.source)(r, cols, s, W)
+            has = (cols < own) & (src >= 0)
+            cand = np.where(has, bufs[p, np.maximum(src, 0), off] + v, 0.0)
+            better = has & (cand > reg[r])
+            reg[r] = np.where(better, cand, reg[r])
+            bits[r * W:(r + 1) * W] = better
+        bufs[1 - p] = reg
+        p = 1 - p
+        keep[i] = np.packbits(bits)[:keep.shape[1]]
+    return keep
+
+
+@pytest.mark.parametrize("kind,n,qcap,seed,ranks", [
+    ("planner", 80, 1638, 40, 16), ("planner", 80, 1638, 41, 3),
+    ("ties", 200, 150, 42, 5), ("edges", 60, 1000, 43, 16),
+    ("edges", 40, 0, 44, 16), ("edges", 60, 1000, 45, 1)])
+def test_route_1_emulated_on_the_host_is_the_reference_dps_bytes(
+        kind, n, qcap, seed, ranks):
+    values, qsizes = _inputs(kind, n, qcap, seed)
+    if kind == "planner":                     # sizes across the ranks
+        qsizes = np.random.default_rng(seed).integers(0, qcap + 1, n)
+    np.testing.assert_array_equal(
+        _emulate_cluster(values, qsizes, qcap, ranks),
+        ref_knapsack._numpy_dp(values, qsizes, qcap))
